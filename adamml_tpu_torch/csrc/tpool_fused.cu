@@ -21,7 +21,8 @@
 // f32 with one rounding at the end. Multiply and adds use the _rn intrinsics
 // so nvcc does not contract them into an FMA: the result is then bit-equal to
 // the plain PyTorch composition (y*a, +b, +ident, each rounded in f32). ReLU
-// and max propagate NaN like torch.relu / torch.amax.
+// and max propagate NaN like torch.relu / torch.max. The backward is
+// csrc/tpool_fused_bwd.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

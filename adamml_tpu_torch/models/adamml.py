@@ -46,6 +46,8 @@ class AdaMML(nn.Module):
                  policy_input_size: int = 160,
                  eval_capacity: Optional[float] = None,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
+                 remat: bool = False, remat_stages: Sequence[int] = (),
+                 remat_policy: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.modality = tuple(modality)
@@ -56,23 +58,27 @@ class AdaMML(nn.Module):
         self.policy_net = None if rng_policy else PolicyNet(
             p_mod, [input_channels_for(m) for m in p_mod],
             causality_modeling=causality_modeling,
-            use_pallas_dw=use_pallas_dw, dtype=dtype)
+            use_pallas_dw=use_pallas_dw, remat_trunk=remat_policy,
+            dtype=dtype)
         self.main_net = JointMainNet(
             m_mod, depth=depth, num_classes=num_classes, dropout=dropout,
             without_t_stride=without_t_stride, pooling_method=pooling_method,
             fusion_point=fusion_point,
             learnable_lf_weights=learnable_lf_weights,
             eval_capacity=eval_capacity, use_pallas_dw=use_pallas_dw,
-            fused_tpool=fused_tpool, dtype=dtype)
+            fused_tpool=fused_tpool, remat=remat, remat_stages=remat_stages,
+            dtype=dtype)
 
     def forward(self, x: Sequence[torch.Tensor],
                 temperature=INIT_TEMPERATURE, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None):
         """x: per-modality list, each (N, S, F, H, W, C); sound is
         (N, S, 1, 256, T, 1). Returns (logits (N, K) float32, decisions
         (N, S, M)) with M the number of MAIN modalities (reference
         models/adamml.py:69-91). ``generator`` draws the Gumbel (or
-        rng-policy) noise on the inputs' device."""
+        rng-policy) noise on the inputs' device, ``dropout_generator`` the
+        main net's dropout masks in train mode."""
         p_mod, m_mod = split_modalities(self.modality)
         mod = self.modality
         n, s = x[0].shape[0], x[0].shape[1]
@@ -99,7 +105,7 @@ class AdaMML(nn.Module):
             t = x[mod.index(m)]
             m_x.append(t.reshape((n * s,) + tuple(t.shape[2:])))
         dec_flat = decisions.permute(1, 2, 0).reshape(num_modality, n * s)
-        seg_logits = self.main_net(m_x, dec_flat, train=train,
-                                   seq_groups=s)  # (N*S, K)
+        seg_logits = self.main_net(m_x, dec_flat, train=train, seq_groups=s,
+                                   generator=dropout_generator)  # (N*S, K)
         final = seg_logits.reshape(n, s, -1).mean(dim=1)  # segment mean
         return final, decisions.permute(2, 0, 1)  # (N, K), (N, S, M)

@@ -13,10 +13,10 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..configs.config import input_channels_for
+from ..ops.dropout import dropout
 from .layers import Dense
 from .mobilenet_v2 import MobileNetV2
 from .resnet_tsn import ResNetTSN
@@ -36,6 +36,7 @@ class JointMainNet(nn.Module):
                  learnable_lf_weights: bool = False,
                  eval_capacity: Optional[float] = None,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
+                 remat: bool = False, remat_stages: Sequence[int] = (),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if eval_capacity is not None and eval_capacity < 1.0:
@@ -63,7 +64,8 @@ class JointMainNet(nn.Module):
                                 pooling_method=pooling_method, dtype=dtype,
                                 fused_tpool=fused_tpool,
                                 input_channels=input_channels_for(m),
-                                head=logits_head)
+                                head=logits_head, remat=remat,
+                                remat_stages=remat_stages)
                 feat_dim += net.feature_dim
             self.add_module(f"net_{m}", net)
         if logits_head:
@@ -75,20 +77,23 @@ class JointMainNet(nn.Module):
             self.joint_fc2 = Dense(JOINT_DIM, JOINT_DIM, dtype)
             self.fc = Dense(JOINT_DIM, num_classes, dtype)
 
-    def _run(self, m: str, x: torch.Tensor, train: bool, seq_groups: int,
-             features: bool = False):
-        net = getattr(self, f"net_{m}")
-        if m == "sound":
-            return net(x, train, features=features)
-        return net(x, train, features=features, seq_groups=seq_groups)
-
     def forward(self, m_x: Sequence[torch.Tensor],
                 decisions: Optional[torch.Tensor] = None,
-                train: bool = False, seq_groups: int = 1):
+                train: bool = False, seq_groups: int = 1,
+                generator: Optional[torch.Generator] = None):
+        """``seq_groups``: segments folded clip-major into B (train-mode BN
+        moments are per segment); ``generator`` draws the dropout masks in
+        train mode, backbone by backbone."""
+
+        def run(i, features=False):
+            return getattr(self, f"net_{self.modality[i]}")(
+                m_x[i], train, features=features, seq_groups=seq_groups,
+                generator=generator)
+
         if self.fusion_point == "logits":
             outs = []
             for i, m in enumerate(self.modality):
-                logit = self._run(m, m_x[i], train, seq_groups)  # (B, K)
+                logit = run(i)  # (B, K)
                 if decisions is not None:
                     # mask at logits; backbones always run (reference
                     # joint_resnet_mobilenetv2.py:92-94)
@@ -106,12 +111,12 @@ class JointMainNet(nn.Module):
             raise ValueError("decision masking only supports logits fusion")
         feats = []
         for i, m in enumerate(self.modality):
-            f = self._run(m, m_x[i], train, seq_groups, features=True)
+            f = run(i, features=True)
             if m != "sound":
                 f = f.mean(dim=(2, 3))  # spatial avgpool -> (B, F_out, C)
             feats.append(f.mean(dim=1))
         out = torch.cat(feats, dim=-1).to(self.dtype)
         out = torch.relu(self.joint_fc1(out))
         out = torch.relu(self.joint_fc2(out))
-        out = F.dropout(out, self.dropout, training=train)
+        out = dropout(out, self.dropout, train, generator)
         return self.fc(out).float()

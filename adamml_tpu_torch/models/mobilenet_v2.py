@@ -1,4 +1,4 @@
-"""MobileNetV2 (``adamml_tpu/models/mobilenet_v2.py``), eval path.
+"""MobileNetV2 (``adamml_tpu/models/mobilenet_v2.py``).
 
 One module covers both reference variants:
 
@@ -8,7 +8,10 @@ One module covers both reference variants:
     first block of the c=64 and c=160 stages (reference
     models/policy_net.py:98-203): ``temporal_pooling=True``.
 
-Activations are NHWC with frames folded into the batch.
+Activations are NHWC with frames folded into the batch. In train mode every
+BN takes per-segment moments: ``seq_groups`` segments folded clip-major into
+the batch, ``seq_inner`` the frame count at that layer (it halves at each
+temporal pool).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout
 from ..ops.temporal import temporal_pool
 from .layers import Conv, Dense
 from .norm import GroupedBatchNorm
@@ -66,8 +70,12 @@ class _ConvBNReLU6(nn.Module):
                          dtype)
         self.bn = GroupedBatchNorm(features, dtype=dtype)
 
-    def forward(self, x, train: bool):
-        return torch.clamp(self.bn(self.conv(x), train), 0.0, 6.0)
+    def forward(self, x, train: bool, seq_groups: int = 1,
+                seq_inner: int = 1):
+        # relu6's gradient is 0 at 0 and at 6, as jax.nn.relu6's is
+        # (torch.clamp's is 1 there)
+        return F.relu6(self.bn(self.conv(x), train, False, seq_groups,
+                               seq_inner))
 
 
 class InvertedResidual(nn.Module):
@@ -86,10 +94,12 @@ class InvertedResidual(nn.Module):
         self.pw_linear = Conv(hidden, features, 1, dtype=dtype)
         self.bn_linear = GroupedBatchNorm(features, dtype=dtype)
 
-    def forward(self, x, train: bool):
-        out = x if self.pw is None else self.pw(x, train)
-        out = self.dw(out, train)
-        out = self.bn_linear(self.pw_linear(out), train)
+    def forward(self, x, train: bool, seq_groups: int = 1,
+                seq_inner: int = 1):
+        seq = (seq_groups, seq_inner)
+        out = x if self.pw is None else self.pw(x, train, *seq)
+        out = self.dw(out, train, *seq)
+        out = self.bn_linear(self.pw_linear(out), train, False, *seq)
         return x + out if self.use_res else out
 
 
@@ -134,10 +144,14 @@ class MobileNetV2(nn.Module):
                            if head else None)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                features: bool = False):
+                features: bool = False, seq_groups: int = 1,
+                generator: Optional[torch.Generator] = None):
+        """``seq_groups``: segments folded clip-major into the batch (the
+        AdaMML wrapper passes S); ``generator`` draws the classifier's
+        dropout mask in train mode."""
         n, f, h, w, c = x.shape
         x = x.to(self.dtype).reshape(n * f, h, w, c)
-        x = self.features_0(x, train)
+        x = self.features_0(x, train, seq_groups, f)
         cur_frames = f
         for name, pool_before in self.blocks:
             if self.temporal_pooling and pool_before and cur_frames > 1:
@@ -145,11 +159,11 @@ class MobileNetV2(nn.Module):
                 x = temporal_pool(x, 3, 2, "max")
                 cur_frames = x.shape[1]
                 x = x.reshape((n * cur_frames,) + tuple(x.shape[2:]))
-            x = getattr(self, name)(x, train)
-        x = self.conv_last(x, train)
+            x = getattr(self, name)(x, train, seq_groups, cur_frames)
+        x = self.conv_last(x, train, seq_groups, cur_frames)
         x = x.mean(dim=(1, 2))  # (N*F_out, last_channel)
         if features:
             return x.reshape(n, cur_frames, self.last_channel)
-        x = F.dropout(x, self.dropout, training=train)
+        x = dropout(x, self.dropout, train, generator)
         x = self.classifier(x).reshape(n, cur_frames, -1)
         return x.mean(dim=1).float()

@@ -48,13 +48,16 @@ def build_model(cfg: ExperimentConfig, device: Device = None
             rng_threshold=m.rng_threshold,
             policy_input_size=m.policy_input_size,
             eval_capacity=m.eval_capacity, use_pallas_dw=m.use_pallas_dw,
-            fused_tpool=m.fused_tpool, dtype=dtype)
+            fused_tpool=m.fused_tpool, remat=m.remat_backbone,
+            remat_stages=m.remat_stages, remat_policy=m.remat_policy,
+            dtype=dtype)
     elif m.backbone_net == "resnet":
         model = ResNetTSN(
             depth=m.depth, num_classes=m.num_classes, dropout=m.dropout,
             without_t_stride=m.without_t_stride,
             pooling_method=m.pooling_method, dtype=dtype,
-            fused_tpool=m.fused_tpool, input_channels=m.input_channels[0])
+            fused_tpool=m.fused_tpool, input_channels=m.input_channels[0],
+            remat=m.remat_backbone, remat_stages=m.remat_stages)
     elif m.backbone_net == "sound_mobilenet_v2":
         model = MobileNetV2(num_classes=m.num_classes, dropout=m.dropout,
                             use_pallas_dw=m.use_pallas_dw, dtype=dtype,

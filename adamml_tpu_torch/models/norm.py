@@ -1,15 +1,25 @@
-"""Batch normalization (``adamml_tpu/models/norm.py``), eval mode.
+"""Batch normalization with grouped moments (``adamml_tpu/models/norm.py``).
 
-Normalizes over the last (channel) axis with the running statistics as the
-affine x * a + b, a = scale * rsqrt(var + eps), b = bias - mean * a, in
-float32, and casts back to the compute dtype. ``return_affine=True`` returns
-(a, b) as (1, 1, C) instead of applying them, so a consumer can fuse the
-normalize into its own kernel (ops/kernels/tpool_fused.py).
+Normalizes over the last (channel) axis as the affine x * a + b with
+a = scale * rsqrt(var + eps), b = bias - mean * a, in float32, and casts back
+to the compute dtype. ``return_affine=True`` returns (a, b) instead of
+applying them, so a consumer can fuse the normalize into its own kernel
+(ops/kernels/tpool_fused.py): (1, 1, C) from the running statistics in
+eval, (R, S, C) from the batch moments in train.
+
+Train mode: the leading axis is (clips, segments, frames)-ordered, so it
+factors freely into (R replica groups, clips per group, S segments,
+``seq_inner`` frames). Moments ``var = E[x^2] - mean^2`` are taken in
+float32 per (replica, segment) over (clips, frames, spatial); a batch that
+does not split so (or R = S = 1) takes global moments. The running
+statistics see replica group 0's moments only, with the unbiased variance
+(count / (count - 1)), folded over the S segments in order as S
+consecutive BN forwards would: ra <- m^S ra + sum_i (1-m) m^(S-1-i) moment_i,
+m = 0.9. They move once per forward: ``update_stats`` is False while a
+checkpointed forward is recomputed (models/remat.py).
 
 Parameter and buffer names follow torch (weight, bias, running_mean,
 running_var); ckpt/flax_convert.py maps flax's scale/bias/mean/var onto them.
-Train mode -- grouped (replica, segment) moments and the sequential
-running-stat fold -- comes with the training slice.
 """
 
 from __future__ import annotations
@@ -18,28 +28,62 @@ import torch
 from torch import nn
 
 EPSILON = 1e-5  # every BN of the JAX models (adamml_tpu/models/norm.py:39)
+MOMENTUM = 0.9  # adamml_tpu/models/norm.py:38
 
 
 class GroupedBatchNorm(nn.Module):
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 groups: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
+        self.groups = groups
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                return_affine: bool = False):
-        if train:
-            raise NotImplementedError(
-                "train-mode GroupedBatchNorm (grouped moments, running-stat "
-                "fold) comes with the training slice")
-        a = self.weight * torch.rsqrt(self.running_var + EPSILON)
-        b = self.bias - self.running_mean * a
+                return_affine: bool = False, seq_groups: int = 1,
+                seq_inner: int = 1):
+        if not train:
+            a = self.weight * torch.rsqrt(self.running_var + EPSILON)
+            b = self.bias - self.running_mean * a
+            if return_affine:
+                return a[None, None], b[None, None]
+            # one float32 pass (x promotes to a's dtype inside the op) and one
+            # cast, where (x - mean) * rsqrt(var + eps) * scale + bias would
+            # take five float32 passes over the activation in eager mode
+            return torch.addcmul(b, x, a).to(self.dtype)
+
+        n, c = x.shape[0], x.shape[-1]
+        r, sq, si = max(1, self.groups), max(1, seq_groups), max(1, seq_inner)
+        if not (r * sq > 1 and n % (r * sq * si) == 0):
+            r = sq = si = 1  # global moments
+        gshape = (r, n // (r * sq * si), sq, si) + tuple(x.shape[1:])
+        red = (1, 3) + tuple(range(4, len(gshape) - 1))
+        xf = x.float().reshape(gshape)
+        mean = xf.mean(red)                                  # (R, S, C)
+        var = (xf * xf).mean(red) - mean * mean
+        if self.update_stats:
+            self._update_running(mean[0], var[0], x.numel() // (r * sq * c))
+        a = self.weight * torch.rsqrt(var + EPSILON)
+        b = self.bias - mean * a
         if return_affine:
-            return a[None, None], b[None, None]
-        # one float32 pass (x promotes to a's dtype inside the op) and one
-        # cast, where (x - mean) * rsqrt(var + eps) * scale + bias would take
-        # five float32 passes over the activation in eager mode
-        return torch.addcmul(b, x, a).to(self.dtype)
+            return a, b
+        bshape = (r, 1, sq, 1) + (1,) * (len(gshape) - 5) + (c,)
+        y = torch.addcmul(b.reshape(bshape), x.reshape(gshape),
+                          a.reshape(bshape))
+        return y.reshape(x.shape).to(self.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                        count: int) -> None:
+        """Fold the (S, C) moment sets into the running statistics."""
+        m, s = MOMENTUM, mean.shape[0]
+        if count > 1:
+            var = var * (count / (count - 1))
+        w = (1.0 - m) * torch.pow(m, torch.arange(
+            s - 1, -1, -1, dtype=torch.float32, device=mean.device))
+        self.running_mean.mul_(m ** s).add_(w @ mean)
+        self.running_var.mul_(m ** s).add_(w @ var)

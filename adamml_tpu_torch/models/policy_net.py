@@ -3,13 +3,16 @@
 Per-modality MobileNetV2 trunks -> concat -> 2-layer MLP(2048) ->
 LSTMCell(2048 + 2M -> 256) -> per-modality Linear(256 -> 2) ->
 straight-through Gumbel decision (reference models/policy_net.py:206-379).
-All N*S segment feature extractions run as one batch; the recurrence is a
-Python loop over the S segments. Gumbel noise comes from one
-``torch.Generator``, drawn segment by segment.
+All N*S segment feature extractions run as one batch (train-mode BN moments
+per segment); the recurrence is a Python loop over the S segments. Gumbel
+noise comes from one ``torch.Generator``, drawn segment by segment. With
+``remat_trunk`` the trunks' activations are recomputed in the backward
+(models/remat.py), so they do not sit on top of the main net's.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -18,6 +21,7 @@ from torch import nn
 from ..ops.gumbel import gumbel_decision
 from .layers import Dense
 from .mobilenet_v2 import MobileNetV2
+from .remat import remat, remat_active
 
 JOINT_DIM = 2048     # reference models/policy_net.py:227
 LSTM_HIDDEN = 256    # reference models/policy_net.py:277
@@ -63,7 +67,7 @@ class PolicyNet(nn.Module):
 
     def __init__(self, modality: Sequence[str], input_channels: Sequence[int],
                  causality_modeling: Optional[str] = "lstm",
-                 use_pallas_dw: bool = False,
+                 use_pallas_dw: bool = False, remat_trunk: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if causality_modeling not in (None, "lstm"):
@@ -71,6 +75,7 @@ class PolicyNet(nn.Module):
                 f"unknown causality_modeling {causality_modeling!r}")
         self.modality = tuple(modality)
         self.causality_modeling = causality_modeling
+        self.remat_trunk = remat_trunk
         self.dtype = dtype
         num_modality = len(self.modality)
         for m, ch in zip(self.modality, input_channels):
@@ -94,7 +99,11 @@ class PolicyNet(nn.Module):
         feats = []
         for m, x in zip(self.modality, p_x):
             xf = x.reshape((n * s,) + tuple(x.shape[2:]))
-            f = getattr(self, f"net_{m}")(xf, train, features=True)
+            trunk = getattr(self, f"net_{m}")
+            run = functools.partial(trunk, train=train, features=True,
+                                    seq_groups=s)
+            f = (remat(trunk, run, xf)
+                 if remat_active(self.remat_trunk, train) else run(xf))
             feats.append(f.mean(dim=1))  # F_out == 1 in reference configs
         joint = torch.cat(feats, dim=-1).to(self.dtype)
         joint = torch.relu(self.joint_fc1(joint))

@@ -1,9 +1,12 @@
-"""ResNet TSN backbone (``adamml_tpu/models/resnet_tsn.py``), eval path.
+"""ResNet TSN backbone (``adamml_tpu/models/resnet_tsn.py``).
 
 A 2D ResNet applied per frame, frames folded into the batch, with temporal
 pooling after stages 1-3 (reference models/resnet.py:116-241). Activations
 are NHWC (N*F, H, W, C); a stage-boundary tensor viewed as (N, F, H, W, C)
 is the row-major layout the fused epilogue kernel reads, with no copy.
+In train mode every BN takes per-segment moments (``seq_groups`` = S
+segments folded clip-major into the batch, ``seq_inner`` = the frame count
+at that layer), so the fused kernel gets a grouped (1, S, C) affine.
 
 Module and parameter names follow the flax tree (conv1, bn1,
 layer{stage}_{block}/cb1/conv, ...), so ckpt/flax_convert.py is a direct
@@ -12,16 +15,18 @@ path mapping.
 
 from __future__ import annotations
 
-from typing import List
+import functools
+from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout
 from ..ops.kernels.tpool_fused import fused_bn_add_relu_tpool
 from ..ops.temporal import temporal_pool
 from .layers import Conv, Dense, max_pool_3x3_s2
 from .norm import GroupedBatchNorm
+from .remat import remat, remat_active
 
 # depth -> (block kind, per-stage counts); reference models/resnet.py:123-129
 RESNET_LAYERS = {
@@ -40,14 +45,15 @@ class _ConvBN(nn.Module):
         self.conv = Conv(in_features, features, kernel, strides, dtype=dtype)
         self.bn = GroupedBatchNorm(features, dtype=dtype)
 
-    def forward(self, x, train: bool, defer_affine: bool = False):
+    def forward(self, x, train: bool, defer_affine: bool = False,
+                seq_groups: int = 1, seq_inner: int = 1):
         """``defer_affine``: return (conv_out, a, b) so the caller can fuse
         the normalize into the epilogue kernel."""
         x = self.conv(x)
         if defer_affine:
-            a, b = self.bn(x, train, return_affine=True)
+            a, b = self.bn(x, train, True, seq_groups, seq_inner)
             return x, a, b
-        return self.bn(x, train)
+        return self.bn(x, train, False, seq_groups, seq_inner)
 
 
 class BasicBlock(nn.Module):
@@ -62,17 +68,19 @@ class BasicBlock(nn.Module):
         self.downsample = (_ConvBN(inplanes, planes, 1, strides, dtype)
                            if downsample else None)
 
-    def forward(self, x, train: bool, defer_epilogue: bool = False):
+    def forward(self, x, train: bool, defer_epilogue: bool = False,
+                seq_groups: int = 1, seq_inner: int = 1):
         """``defer_epilogue``: return (conv_out, identity, a, b) instead of
         relu(bn(conv_out) + identity)."""
+        seq = (seq_groups, seq_inner)
         identity = x
-        out = torch.relu(self.cb1(x, train))
+        out = torch.relu(self.cb1(x, train, False, *seq))
         if self.downsample is not None:
-            identity = self.downsample(x, train)
+            identity = self.downsample(x, train, False, *seq)
         if defer_epilogue:
-            out, a, b = self.cb2(out, train, defer_affine=True)
+            out, a, b = self.cb2(out, train, True, *seq)
             return out, identity, a, b
-        return torch.relu(self.cb2(out, train) + identity)
+        return torch.relu(self.cb2(out, train, False, *seq) + identity)
 
 
 class Bottleneck(nn.Module):
@@ -88,16 +96,18 @@ class Bottleneck(nn.Module):
         self.downsample = (_ConvBN(inplanes, planes * 4, 1, strides, dtype)
                            if downsample else None)
 
-    def forward(self, x, train: bool, defer_epilogue: bool = False):
+    def forward(self, x, train: bool, defer_epilogue: bool = False,
+                seq_groups: int = 1, seq_inner: int = 1):
+        seq = (seq_groups, seq_inner)
         identity = x
-        out = torch.relu(self.cb1(x, train))
-        out = torch.relu(self.cb2(out, train))
+        out = torch.relu(self.cb1(x, train, False, *seq))
+        out = torch.relu(self.cb2(out, train, False, *seq))
         if self.downsample is not None:
-            identity = self.downsample(x, train)
+            identity = self.downsample(x, train, False, *seq)
         if defer_epilogue:
-            out, a, b = self.cb3(out, train, defer_affine=True)
+            out, a, b = self.cb3(out, train, True, *seq)
             return out, identity, a, b
-        return torch.relu(self.cb3(out, train) + identity)
+        return torch.relu(self.cb3(out, train, False, *seq) + identity)
 
 
 class ResNetTSN(nn.Module):
@@ -113,7 +123,8 @@ class ResNetTSN(nn.Module):
                  dropout: float = 0.5, without_t_stride: bool = False,
                  pooling_method: str = "max",
                  dtype: torch.dtype = torch.float32, fused_tpool: bool = True,
-                 input_channels: int = 3, head: bool = True):
+                 input_channels: int = 3, head: bool = True,
+                 remat: bool = False, remat_stages: Sequence[int] = ()):
         super().__init__()
         kind, layers = RESNET_LAYERS[depth]
         block_cls = BasicBlock if kind == "basic" else Bottleneck
@@ -123,6 +134,10 @@ class ResNetTSN(nn.Module):
         self.pooling_method = pooling_method
         self.dtype = dtype
         self.fused_tpool = fused_tpool
+        # blocks whose activations are recomputed in the backward
+        # (models/remat.py): every stage, or the 1-based stages listed
+        self.remat = remat
+        self.remat_stages = tuple(remat_stages)
         self.conv1 = Conv(input_channels, 64, 7, 2, dtype=dtype)
         self.bn1 = GroupedBatchNorm(64, dtype=dtype)
         self.stage_blocks: List[List[str]] = []
@@ -148,9 +163,12 @@ class ResNetTSN(nn.Module):
         return 2048 if self.depth >= 50 else 512
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                features: bool = False, seq_groups: int = 1):
+                features: bool = False, seq_groups: int = 1,
+                generator: Optional[torch.Generator] = None):
         """``seq_groups``: segments folded clip-major into the batch (the
-        AdaMML wrapper passes S); the fuse gate needs whole segment cycles."""
+        AdaMML wrapper passes S): train-mode BN moments are per segment, and
+        the fuse gate needs whole segment cycles. ``generator`` draws the
+        head's dropout mask in train mode."""
         n, f, h, w, c = x.shape
 
         def fold(t):
@@ -160,7 +178,7 @@ class ResNetTSN(nn.Module):
             return t.reshape((-1, frames) + tuple(t.shape[1:]))
 
         x = fold(x.to(self.dtype))
-        x = torch.relu(self.bn1(self.conv1(x), train))
+        x = torch.relu(self.bn1(self.conv1(x), train, False, seq_groups, f))
         x = max_pool_3x3_s2(x)
 
         cur_frames = f
@@ -177,17 +195,24 @@ class ResNetTSN(nn.Module):
                          and (total_groups <= 1
                               or (x.shape[0] % total_groups == 0
                                   and n_clips % total_groups == 0)))
+            rematted = remat_active(
+                self.remat or stage + 1 in self.remat_stages, train)
             for i, name in enumerate(names):
                 blk = getattr(self, name)
-                if fuse_pool and i == len(names) - 1:
-                    y, ident, aff_a, aff_b = blk(x, train, defer_epilogue=True)
+                defer = fuse_pool and i == len(names) - 1
+                run = functools.partial(blk, train=train, defer_epilogue=defer,
+                                        seq_groups=seq_groups,
+                                        seq_inner=cur_frames)
+                out = remat(blk, run, x) if rematted else run(x)
+                if defer:
+                    y, ident, aff_a, aff_b = out
                     x = fused_bn_add_relu_tpool(
                         unfold(y, cur_frames).contiguous(),
                         unfold(ident, cur_frames).contiguous(), aff_a, aff_b)
                     cur_frames = x.shape[1]
                     x = fold(x)
                 else:
-                    x = blk(x, train)
+                    x = out
             # temporal pooling after layers 1-3 (reference models/resnet.py:145-154)
             if pool_here and not fuse_pool:
                 x = temporal_pool(unfold(x, cur_frames), 3, 2,
@@ -199,7 +224,7 @@ class ResNetTSN(nn.Module):
             return unfold(x, cur_frames)
 
         x = x.mean(dim=(1, 2))  # global average pool
-        x = F.dropout(x, self.dropout, training=train)
+        x = dropout(x, self.dropout, train, generator)
         x = self.fc(x)
         x = unfold(x, cur_frames)  # (N, F_out, K)
         return x.mean(dim=1).float()

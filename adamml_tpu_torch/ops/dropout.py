@@ -1,0 +1,26 @@
+"""Dropout with an explicit generator (flax ``nn.Dropout``).
+
+Keeps each element with probability 1 - p, drawn as ``rand < 1 - p`` from
+the caller's ``torch.Generator`` on the tensor's device, and scales what it
+keeps by 1/(1 - p). The global generator is never read, so a step seeded
+from (seed, step) repeats exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def dropout(x: torch.Tensor, p: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    if not train or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("train-mode dropout needs a generator")
+    keep_prob = 1.0 - p
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))

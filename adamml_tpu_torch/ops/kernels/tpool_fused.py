@@ -1,5 +1,6 @@
 """Fused stage-boundary epilogue: BN-apply + residual-add + ReLU + temporal
-max-pool, as one hand-written CUDA kernel (``csrc/tpool_fused.cu``).
+max-pool, forward and backward, as hand-written CUDA kernels
+(``csrc/tpool_fused.cu``, ``csrc/tpool_fused_bwd.cu``).
 
     out = maxpool_t(k=3, s=2, pad=1)( relu( y * a[g] + b[g] + ident ) )
 
@@ -8,19 +9,27 @@ y, ident: (N, F, H, W, C), leading axis (clips, segments)-ordered; a, b:
 g = (n // (N/R)) * S + n % S (R = S = 1 is the eval-mode affine). All math
 in float32, one rounding at the end to y's dtype.
 
-Replaces the forward Pallas kernels of ``adamml_tpu/ops/pallas/tpool_fused.py``:
-``_kernel`` (line 71) and ``_kernel_hwnfc`` (line 345). On the card it is
-bound by device memory: it moves (2*N*F + N*F_out)*H*W*C*itemsize bytes and
-does about four float32 operations per input element.
+The backward recomputes pre = y*a[g] + b[g] + ident, routes each pooled
+cotangent to the FIRST maximum of its window (``lax.reduce_window``'s VJP),
+masks by pre > 0 and gives dident = dpre (rounded to ident's dtype),
+dy = dident * a[g] (from the rounded dpre, as the JAX package's
+``_pallas_bwd`` does) and (da, db) = per-group sums of (dpre * y, dpre)
+taken from the unrounded float32 dpre.
 
-A CPU tensor goes to ``reference_impl``, the plain PyTorch version; a CUDA
-tensor goes to the kernel or the call raises. The backward kernel comes with
-the training slice, so a CUDA input that requires grad raises.
+Replaces the Pallas kernels of ``adamml_tpu/ops/pallas/tpool_fused.py``:
+forward ``_kernel`` (line 71) and ``_kernel_hwnfc`` (line 345), backward
+``_bwd_kernel`` (line 92) and ``_bwd_kernel_hwnfc`` (line 402). Both are
+bound by device memory on the card.
+
+``fused_bn_add_relu_tpool`` is a ``torch.autograd.Function``: a CPU tensor
+takes ``reference_impl`` and ``reference_bwd``, the plain PyTorch versions;
+a CUDA tensor launches the kernels or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,31 +37,80 @@ from ..temporal import out_frames, temporal_pool
 from . import build
 
 KERNEL = "tpool_fused"
+KERNEL_BWD = "tpool_fused_bwd"
 
-# launches of the CUDA kernel, by wrapper (the counterpart of the JAX
-# module's trace_counts); a run sets it to 0 and reads it to show that its
-# path went through the kernel
-launch_counts = {KERNEL: 0}
+# launches of the CUDA kernels, by wrapper (the counterpart of the JAX
+# module's trace_counts); a run sets them to 0 and reads them to show that
+# its path went through the kernels
+launch_counts = {KERNEL: 0, KERNEL_BWD: 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _grouped(t: torch.Tensor, r: int, s: int) -> torch.Tensor:
+    """(N, ...) float32 view as (R, clips per group, S, ...)."""
+    n = t.shape[0]
+    return t.float().reshape((r, n // (r * s), s) + tuple(t.shape[1:]))
+
+
+def _pre(y, ident, a, b):
+    """pre = y * a[g] + b[g] + ident in float32, (N, F, H, W, C)."""
+    r, s, c = a.shape
+    bshape = (r, 1, s, 1, 1, 1, c)
+    z = _grouped(y, r, s) * a.float().reshape(bshape) + b.float().reshape(
+        bshape)
+    return z.reshape(y.shape) + ident.float()
+
+
 def reference_impl(y: torch.Tensor, ident: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version (float32 throughout, one cast at the end)."""
+    """Plain PyTorch forward (float32 throughout, one cast at the end)."""
+    return temporal_pool(torch.relu(_pre(y, ident, a, b)), 3, 2,
+                         "max").to(y.dtype)
+
+
+def reference_bwd(y: torch.Tensor, ident: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, ct: torch.Tensor):
+    """Plain PyTorch backward: (dy, dident, da, db) for the cotangent ct
+    (N, F_out, H, W, C). The routing is written out: autograd through a max
+    would not send a tie to the first maximum."""
     r, s, c = a.shape
-    n = y.shape[0]
+    n, f = y.shape[:2]
+    pre = _pre(y, ident, a, b)
+    z = torch.relu(pre)
+    ctf = ct.float()
+    dz = torch.zeros_like(pre)
+    for fo in range(out_frames(f)):
+        lo, hi = max(0, 2 * fo - 1), min(f, 2 * fo + 2)
+        m = z[:, lo]
+        for k in range(lo + 1, hi):
+            m = torch.maximum(m, z[:, k])
+        taken = torch.zeros_like(m, dtype=torch.bool)
+        for k in range(lo, hi):
+            sel = (z[:, k] == m) & ~taken
+            taken |= sel
+            dz[:, k] += torch.where(sel, ctf[:, fo], 0.0)
+    dpre = torch.where(pre > 0, dz, 0.0)
+    dident = dpre.to(ident.dtype)
     bshape = (r, 1, s, 1, 1, 1, c)
-    yf = y.float().reshape((r, n // (r * s), s) + tuple(y.shape[1:]))
-    z = yf * a.float().reshape(bshape) + b.float().reshape(bshape)
-    z = z.reshape(y.shape) + ident.float()
-    z = torch.relu(z)
-    return temporal_pool(z, 3, 2, "max").to(y.dtype)
+    dy = (_grouped(dident, r, s) * a.float().reshape(bshape)).reshape(
+        y.shape).to(y.dtype)
+    sums = torch.stack([(dpre * y.float()).sum(dim=(1, 2, 3)),
+                        dpre.sum(dim=(1, 2, 3))], dim=1)      # (N, 2, C)
+    return (dy, dident) + _group_sums(sums, r, s)
+
+
+def _group_sums(dab: torch.Tensor, r: int, s: int):
+    """Per-row (N, 2, C) partials -> (da, db), each (R, S, C)."""
+    n, _, c = dab.shape
+    part = dab.reshape(r, n // (r * s), s, 2, c).sum(dim=1)
+    return part[:, :, 0], part[:, :, 1]
 
 
 def check_args(y: torch.Tensor, ident: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+               b: torch.Tensor, ct: Optional[torch.Tensor] = None) -> None:
+    """Raise ValueError on anything the kernels do not take; ``ct`` is the
+    backward's cotangent."""
     if y.dim() != 5 or tuple(ident.shape) != tuple(y.shape):
         raise ValueError(f"y and ident must be (N, F, H, W, C) of one shape, "
                          f"got {tuple(y.shape)} and {tuple(ident.shape)}")
@@ -76,7 +134,14 @@ def check_args(y: torch.Tensor, ident: torch.Tensor, a: torch.Tensor,
     if n % (r * s) or (n // r) % s:
         raise ValueError(f"rows N={n} do not split into R={r} replica "
                          f"groups of whole S={s} segment cycles")
-    for name, t in (("y", y), ("ident", ident), ("a", a), ("b", b)):
+    tensors = [("y", y), ("ident", ident), ("a", a), ("b", b)]
+    if ct is not None:
+        want = (n, out_frames(f), h, w, c)
+        if tuple(ct.shape) != want or ct.dtype != y.dtype:
+            raise ValueError(f"ct must be {want} in {y.dtype}, got "
+                             f"{tuple(ct.shape)} in {ct.dtype}")
+        tensors.append(("ct", ct))
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -85,29 +150,40 @@ def check_args(y: torch.Tensor, ident: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"too many threads for one launch: {tuple(y.shape)}")
 
 
-def _load():
-    lib = build.load_library(KERNEL)
-    fn = lib.tpool_fused_fwd
-    if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, i, ll, i, ll, i, i, i, vp]
-        fn.restype = ctypes.c_int
-        lib.tpool_fused_error_string.argtypes = [ctypes.c_int]
-        lib.tpool_fused_error_string.restype = ctypes.c_char_p
+def _load(name: str):
+    """The library of ``csrc/<name>.cu`` with its C signatures declared."""
+    lib = build.load_library(name)
+    if lib.tpool_fused_error_string.restype is ctypes.c_char_p:
+        return lib
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == KERNEL:
+        lib.tpool_fused_fwd.argtypes = [vp] * 5 + [i, ll, i, ll, i, i, i, vp]
+        lib.tpool_fused_fwd.restype = i
+    else:
+        lib.tpool_fused_bwd.argtypes = [vp] * 9 + [i, ll, i, ll, i, i, i, vp]
+        lib.tpool_fused_bwd.restype = i
+        lib.tpool_fused_bwd_chunks.argtypes = [ll, ll, i]
+        lib.tpool_fused_bwd_chunks.restype = i
+    lib.tpool_fused_error_string.argtypes = [i]
+    lib.tpool_fused_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_on(lib, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.tpool_fused_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _same_device(*tensors) -> None:
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("all operands must be on one CUDA device")
+
+
 def _launch(y, ident, a, b):
-    tensors = (y, ident, a, b)
-    if any(t.device != y.device for t in tensors):
-        raise ValueError("y, ident, a and b must be on one CUDA device")
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "fused_bn_add_relu_tpool has no backward kernel yet (the "
-            "training slice ports adamml_tpu/ops/pallas/tpool_fused.py "
-            "_bwd_kernel); call it under torch.no_grad()")
+    _same_device(y, ident, a, b)
     check_args(y, ident, a, b)
-    lib = _load()
+    lib = _load(KERNEL)
     n, f, h, w, c = y.shape
     r, s, _ = a.shape
     out = torch.empty((n, out_frames(f), h, w, c), dtype=y.dtype,
@@ -118,21 +194,72 @@ def _launch(y, ident, a, b):
             y.data_ptr(), ident.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[y.dtype], n, f, h * w, c, r, s,
             stream)
-    if err != 0:
-        msg = lib.tpool_fused_error_string(err).decode()
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} ({msg})")
+    _raise_on(lib, KERNEL, err)
     launch_counts[KERNEL] += 1
     return out
 
 
+def _launch_bwd(y, ident, a, b, ct):
+    """(dy, dident, da, db) from the backward kernel. It writes dident and
+    dy, and per-(row, pixel chunk) partial sums into a scratch buffer that a
+    second kernel of the same launch sums, in a fixed order, to per-row
+    (N, 2, C); the per-group sum of those rows is plain PyTorch."""
+    _same_device(y, ident, a, b, ct)
+    check_args(y, ident, a, b, ct)
+    lib = _load(KERNEL_BWD)
+    n, f, h, w, c = y.shape
+    r, s, _ = a.shape
+    dy, dident = torch.empty_like(y), torch.empty_like(ident)
+    chunks = lib.tpool_fused_bwd_chunks(n, h * w, c)
+    part = torch.empty((n, chunks, 2, c), dtype=torch.float32,
+                       device=y.device)
+    dab = torch.empty((n, 2, c), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = lib.tpool_fused_bwd(
+            y.data_ptr(), ident.data_ptr(), a.data_ptr(), b.data_ptr(),
+            ct.data_ptr(), dident.data_ptr(), dy.data_ptr(), part.data_ptr(),
+            dab.data_ptr(), _DTYPE_CODE[y.dtype], n, f, h * w, c, r, s,
+            stream)
+    _raise_on(lib, KERNEL_BWD, err)
+    launch_counts[KERNEL_BWD] += 1
+    return (dy, dident) + _group_sums(dab, r, s)
+
+
+class _FusedEpilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ident, a, b):
+        ctx.save_for_backward(y, ident, a, b)
+        if y.is_cuda:
+            return _launch(y, ident, a, b)
+        return reference_impl(y, ident, a, b)
+
+    @staticmethod
+    def backward(ctx, ct):
+        y, ident, a, b = ctx.saved_tensors
+        return fused_bn_add_relu_tpool_bwd(y, ident, a, b, ct.contiguous())
+
+
 def fused_bn_add_relu_tpool(y: torch.Tensor, ident: torch.Tensor,
                             a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(y*a[g] + b[g] + ident) -> temporal max-pool, fused.
+    """relu(y*a[g] + b[g] + ident) -> temporal max-pool, fused, with its
+    gradient to all four operands.
 
-    Returns (N, F_out, H, W, C) in y.dtype. CUDA tensors run the kernel;
-    CPU tensors run ``reference_impl``."""
+    Returns (N, F_out, H, W, C) in y.dtype. CUDA tensors run the kernels;
+    CPU tensors run ``reference_impl`` and ``reference_bwd``."""
+    if y.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {y.device}")
+    return _FusedEpilogue.apply(y, ident, a, b)
+
+
+def fused_bn_add_relu_tpool_bwd(y: torch.Tensor, ident: torch.Tensor,
+                                a: torch.Tensor, b: torch.Tensor,
+                                ct: torch.Tensor):
+    """(dy, dident, da, db) of ``fused_bn_add_relu_tpool`` for the cotangent
+    ct (N, F_out, H, W, C). CUDA tensors run the backward kernel; CPU
+    tensors run ``reference_bwd``."""
     if y.is_cuda:
-        return _launch(y, ident, a, b)
+        return _launch_bwd(y, ident, a, b, ct)
     if y.device.type == "cpu":
-        return reference_impl(y, ident, a, b)
+        return reference_bwd(y, ident, a, b, ct)
     raise ValueError(f"unsupported device {y.device}")

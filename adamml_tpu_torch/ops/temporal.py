@@ -19,7 +19,9 @@ def temporal_pool(x: torch.Tensor, kernel: int = 3, stride: int = 2,
                   mode: str = "max") -> torch.Tensor:
     """Pool over axis 1 of (N, F, ..., C). Output frames =
     floor((F + 2*pad - kernel)/stride) + 1 with pad = (kernel-1)//stride.
-    Max propagates NaN; avg sums in float32 and casts back."""
+    Max propagates NaN and, like ``lax.reduce_window``'s VJP, sends each
+    window's gradient to its FIRST maximum (``amax`` would split a tie);
+    avg sums in float32 and casts back."""
     if mode not in ("max", "avg"):
         raise ValueError("mode must be 'avg' or 'max'")
     pad = (kernel - 1) // stride
@@ -30,7 +32,7 @@ def temporal_pool(x: torch.Tensor, kernel: int = 3, stride: int = 2,
         hi = min(f, fo * stride - pad + kernel)
         win = x[:, lo:hi]
         if mode == "max":
-            outs.append(win.amax(dim=1))
+            outs.append(win.max(dim=1).values)
         else:
             outs.append(win.float().sum(dim=1) / float(kernel))
     return torch.stack(outs, dim=1).to(x.dtype)

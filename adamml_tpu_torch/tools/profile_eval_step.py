@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where the flagship eval step's time goes on the card (the port's
-counterpart of tools/profile_step.py).
+"""Where the flagship step's time goes on the card (the port's counterpart
+of tools/profile_step.py).
 
-    python -m adamml_tpu_torch.tools.profile_eval_step [--batch 8]
-        [--steps 3] [--trace PATH]
+    python -m adamml_tpu_torch.tools.profile_eval_step
+        [--phase eval|main|policy] [--batch 8] [--steps 3] [--trace PATH]
 
 Builds the flagship AdaMML (bf16, seeded random weights), runs two warm-up
-eval steps, then profiles ``--steps`` steps with torch.profiler (CPU and
-CUDA). Prints JSON lines: the step's host-clock latency; the device's busy
-time (union of kernel intervals) and idle share over the profiled steps;
-device time by kernel class (convolution, matmul, elementwise, reduction,
-the fused epilogue kernel, other); and the top kernels by device time.
-``--trace`` keeps the Chrome trace. Needs a CUDA card.
+steps of the phase (the eval step, or the train step's main or policy
+phase), then profiles ``--steps`` steps with torch.profiler (CPU and CUDA).
+Prints JSON lines: the step's host-clock latency and the peak device memory
+of the profiled steps; the device's busy time (union of kernel intervals)
+and idle share; device time by kernel class (convolution, matmul,
+elementwise, reduction, the fused epilogue kernels, other); and the top
+kernels by device time. ``--trace`` keeps the Chrome trace. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ import torch
 
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
-from adamml_tpu_torch.train.steps import make_adamml_eval_step
-from adamml_tpu_torch.train.train_state import EvalState
+from adamml_tpu_torch.train.optim import build_optimizer
+from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
+                                          make_adamml_train_step)
+from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
+                                                TrainState)
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
@@ -65,6 +70,8 @@ def _union_us(intervals):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--phase", choices=("eval", "main", "policy"),
+                   default="eval")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default="")
@@ -75,23 +82,42 @@ def main(argv=None) -> int:
 
     cfg = flagship_cfg()
     model, name = build_model(cfg)
-    step = make_adamml_eval_step(model)
     inputs = example_inputs(cfg, batch=args.batch, seed=0)
     target = torch.zeros(args.batch, dtype=torch.long, device="cuda")
+    if args.phase == "eval":
+        eval_step = make_adamml_eval_step(model)
+
+        def step(i):
+            eval_step(EvalState(), inputs, target, i)
+    else:
+        # the train step's settings of bench.py:156-161
+        state = TrainState(
+            build_optimizer("main", cfg.optim, model.main_net.parameters()),
+            build_optimizer("policy", cfg.optim,
+                            model.policy_net.parameters()))
+        train_step = make_adamml_train_step(
+            model, flags=(StageFlags.main_phase() if args.phase == "main"
+                          else StageFlags.policy_phase()),
+            penalty_type="blockdrop", gammas=10.0, clip_gradient=None)
+
+        def step(i):
+            train_step(state, inputs, target, 1e-3, 1e-2, [1.0, 0.05], i)
     for i in range(2):
-        step(EvalState(), inputs, target, i)
+        step(i)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     lat = []
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(args.steps):
-            with torch.profiler.record_function("eval_step"):
+            with torch.profiler.record_function("step"):
                 t0 = time.perf_counter()
-                step(EvalState(), inputs, target, i)
+                step(i)
                 torch.cuda.synchronize()
                 lat.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory() as tmp:
         path = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -101,7 +127,7 @@ def main(argv=None) -> int:
     # the CPU-side annotation only: record_function also emits a GPU-lane
     # copy of the same span
     steps = [e for e in events if e.get("ph") == "X"
-             and e.get("name") == "eval_step"
+             and e.get("name") == "step"
              and e.get("cat") == "user_annotation"]
     kernels = [e for e in events if e.get("ph") == "X"
                and e.get("cat") == "kernel"]
@@ -118,9 +144,10 @@ def main(argv=None) -> int:
     n = args.steps
     card = torch.cuda.get_device_name(0)
     print(json.dumps({
-        "phase": "profile", "arch": name, "card": card,
+        "phase": "profile", "step": args.phase, "arch": name, "card": card,
         "batch_clips": args.batch, "steps": n,
         "latency_ms": [x * 1e3 for x in lat],
+        "max_memory_allocated_bytes": peak,
         "device_busy_ms_per_step": busy / 1e3 / n,
         "device_idle_share": 1.0 - busy / wall if wall else None,
         "kernel_launches_per_step": len(kernels) / n,

@@ -1,5 +1,6 @@
 """PyTorch port: GroupedBatchNorm (eval), ResNetTSN and both MobileNetV2
-variants against the JAX package, weights carried by load_flax_variables.
+variants against the JAX package, weights carried by load_flax_variables
+(eval mode; train mode is tests/test_torch_train.py).
 
 Float32 on both sides; tolerance 1e-4 absolute on outputs of order 1
 (float32 convolution sums in another order). The JAX side runs on the CPU
@@ -58,8 +59,10 @@ def test_grouped_batchnorm_eval(return_affine):
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        bn(t(x), train=True)
+    # eval mode reads the running statistics and leaves them as they are
+    # (train mode, which moves them: tests/test_torch_train.py)
+    np.testing.assert_array_equal(bn.running_var.numpy(),
+                                  v["batch_stats"]["var"])
 
 
 # (depth, frames, segments, fused): F=4 pools twice, F=8 three times

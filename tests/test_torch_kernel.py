@@ -1,16 +1,17 @@
-"""PyTorch port: the fused stage-boundary epilogue kernel's plain version and
-wrapper against the JAX package's Pallas kernels.
+"""PyTorch port: the fused stage-boundary epilogue's plain forward and
+backward and its wrapper against the JAX package's Pallas kernels.
 
 On the CPU the JAX kernels run in Pallas interpret mode, as
-tests/test_pallas.py runs them; the port's plain version runs in float32.
-The CUDA kernel itself is compared with the plain version only on a card,
-in tests/test_torch_gpu.py and in chip_smoke.py.
+tests/test_pallas.py runs them; the port's plain versions run in float32.
+The CUDA kernels themselves are compared with the plain versions only on a
+card, in tests/test_torch_gpu.py and in chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from adamml_tpu.ops.pallas import tpool_fused as jtp
@@ -74,6 +75,96 @@ def test_reference_impl_bf16_matches_jax():
     assert np.all(np.abs(got32 - want32) <= ulp)
 
 
+def _ct(rs, y):
+    n, f, h, w, c = y.shape
+    return rs.randn(n, (f - 1) // 2 + 1, h, w, c).astype(np.float32)
+
+
+def _jax_bwds(y, ident, a, b, ct):
+    """(name, (dy, dident, da, db)) of jax.vjp of the JAX reference_impl and
+    of both backward Pallas kernels (interpret mode) with _pallas_bwd's
+    post-processing (tpool_fused.py:195-203) written out: on the 8-device
+    CPU mesh _pallas_bwd itself would take the GSPMD path."""
+    jargs = [jnp.asarray(v) for v in (y, ident, a, b)]
+    jct = jnp.asarray(ct)
+    _, vjp = jax.vjp(jtp.reference_impl, *jargs)
+    r, s, c = a.shape
+    n = y.shape[0]
+
+    def post(dpre, dab):
+        bshape = (r, 1, s, 1, 1, 1, c)
+        dy = (dpre.astype(jnp.float32).reshape((r, n // (r * s), s)
+                                               + y.shape[1:])
+              * jargs[2].reshape(bshape)).reshape(y.shape)
+        part = dab.reshape(r, n // (r * s), s, 2, c).sum(axis=1)
+        return dy, dpre, part[:, :, 0], part[:, :, 1]
+
+    return [("jax.vjp(reference_impl)", vjp(jct)),
+            ("_bwd_core", post(*jtp._bwd_core(*jargs, jct, interpret=True))),
+            ("_bwd_hwnfc", post(*jtp._bwd_hwnfc(*jargs, jct,
+                                                 interpret=True)))]
+
+
+@pytest.mark.parametrize("rs_,f", CASES, ids=[f"R{r}S{s}-F{f}"
+                                              for (r, s), f in CASES])
+def test_reference_bwd_matches_jax(rs_, f):
+    """Port plain backward == jax.vjp(reference_impl) == _bwd_core ==
+    _bwd_hwnfc (interpret mode), f32: dy and dident within 1e-6; da and db
+    within 1e-5 (sums over F*H*W*N/(R*S) terms in another order)."""
+    r, s = rs_
+    rs = np.random.RandomState(f * 10 + r + s + 1)
+    y, ident, a, b = _args(rs, _RS_N[rs_], f, 4, 4, 128, r, s)
+    ct = _ct(rs, y)
+    got = ttp.reference_bwd(*(t(v) for v in (y, ident, a, b, ct)))
+    for name, want in _jax_bwds(y, ident, a, b, ct):
+        for g, w, what in zip(got, want, ("dy", "dident", "da", "db")):
+            assert tuple(g.shape) == w.shape, (name, what)
+            tol = 1e-6 if what in ("dy", "dident") else 1e-5
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                       atol=tol, err_msg=f"{name} {what}")
+
+
+def test_reference_bwd_routes_ties_to_first_max():
+    """All frames equal (tests/test_pallas.py:171-191): each window's
+    cotangent goes to its first frame, as every JAX backward does."""
+    rs = np.random.RandomState(0)
+    n, f, h, w, c = 8, 4, 4, 4, 128
+    frame = np.abs(rs.randn(n, 1, h, w, c)) + 0.5
+    y = np.tile(frame, (1, f, 1, 1, 1)).astype(np.float32)
+    ident = np.zeros_like(y)
+    a = np.ones((1, 1, c), np.float32)
+    b = np.zeros((1, 1, c), np.float32)
+    ct = _ct(rs, y)
+    got = ttp.reference_bwd(*(t(v) for v in (y, ident, a, b, ct)))
+    np.testing.assert_array_equal(got[1].numpy()[:, :2], ct)
+    assert not got[1].numpy()[:, 2:].any()
+    for name, want in _jax_bwds(y, ident, a, b, ct):
+        for g, w_ in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
+def test_autograd_on_cpu_takes_plain_backward():
+    """fused_bn_add_relu_tpool's gradients on CPU tensors are
+    reference_bwd's, bit for bit, and launch nothing; bf16 gradients come
+    back in their operands' dtypes."""
+    rs = np.random.RandomState(5)
+    y, ident, a, b = _args(rs, 6, 5, 3, 3, 16, 2, 3)
+    ct = _ct(rs, y)
+    before = dict(ttp.launch_counts)
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = [t(y).to(dtype), t(ident).to(dtype), t(a), t(b)]
+        leaves = [v.requires_grad_(True) for v in ops]
+        out = ttp.fused_bn_add_relu_tpool(*leaves)
+        out.backward(t(ct).to(dtype))
+        want = ttp.reference_bwd(*(v.detach() for v in leaves),
+                                 t(ct).to(dtype))
+        for leaf, w in zip(leaves, want):
+            assert leaf.grad.dtype == leaf.dtype
+            assert torch.equal(leaf.grad, w)
+    assert ttp.launch_counts == before
+
+
 def test_wrapper_on_cpu_takes_plain_version_and_counts_nothing():
     y, ident, a, b = _args(np.random.RandomState(3), 4, 4, 2, 2, 8, 1, 2)
     before = dict(ttp.launch_counts)
@@ -85,7 +176,8 @@ def test_wrapper_on_cpu_takes_plain_version_and_counts_nothing():
 
 @pytest.mark.parametrize("bad", [
     "f1", "c_not_8", "rows", "segments", "dtype", "affine_dtype",
-    "mismatch", "noncontig", "misaligned"])
+    "mismatch", "noncontig", "misaligned", "ct_shape", "ct_dtype",
+    "ct_noncontig"])
 def test_check_args_rejects(bad):
     """What the CUDA path refuses, checked in Python before any launch."""
     rs = np.random.RandomState(0)
@@ -109,8 +201,15 @@ def test_check_args_rejects(bad):
         y = y.transpose(2, 3)
     if bad == "misaligned":
         y = torch.empty(y.numel() + 1)[1:].view(y.shape)
+    ct = t(_ct(rs, y.detach().numpy())) if bad.startswith("ct") else None
+    if bad == "ct_shape":
+        ct = ct[:, :1].contiguous()
+    if bad == "ct_dtype":
+        ct = ct.to(torch.bfloat16)
+    if bad == "ct_noncontig":
+        ct = ct.transpose(2, 3)
     with pytest.raises(ValueError):
-        ttp.check_args(y, ident, a, b)
+        ttp.check_args(y, ident, a, b, ct)
     # the good arguments pass
     ttp.check_args(*(t(v) for v in _args(rs, 4, 4, 2, 2, 16, 1, 2)))
 
@@ -119,7 +218,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build(["tpool_fused"])
+        build.build(["tpool_fused", "tpool_fused_bwd"])
     assert list(tmp_path.iterdir()) == []
 
 

@@ -95,6 +95,67 @@ def test_temporal_pool_matches(mode, f):
     assert ttemporal.out_frames(f) == want.shape[1]
 
 
+@pytest.mark.parametrize("f", [2, 3, 4, 5])
+def test_temporal_pool_tie_gradient_routes_to_first_max(f):
+    """Ties within a window send the whole gradient to the first maximum,
+    as lax.reduce_window's VJP does (amax split it evenly: [1, 3, 3] gave
+    [0, 0.5, 0.5] where JAX gives [0, 1, 0])."""
+    rs = np.random.RandomState(f)
+    x = np.repeat(rs.randn(2, 1, 3), f, axis=1).astype(np.float32)
+    x[0, 0] -= 1.0  # one strict maximum beside the ties
+    ct = rs.randn(2, ttemporal.out_frames(f), 3).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jtemporal.temporal_pool(v, 3, 2, "max"),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+    tx = t(x).requires_grad_(True)
+    ttemporal.temporal_pool(tx, 3, 2, "max").backward(t(ct))
+    np.testing.assert_array_equal(tx.grad.numpy(), want)
+
+
+def test_relu6_gradient_is_zero_at_the_bounds():
+    """The MobileNetV2 activation's gradient is 0 at exactly 0 and 6 and 1
+    between, as jax.nn.relu6's (torch.clamp's is 1 at both bounds)."""
+    x = np.array([-1.0, 0.0, 3.0, 6.0, 7.0], np.float32)
+    want = np.asarray(jax.grad(lambda v: jax.nn.relu6(v).sum())(
+        jnp.asarray(x)))
+    np.testing.assert_array_equal(want, [0, 0, 1, 0, 0])
+    class Identity(torch.nn.Module):
+        def forward(self, v, *args):
+            return v
+
+    layer = tmnv2._ConvBNReLU6(1, 1, kernel=1)
+    layer.bn = Identity()  # the activation sees the conv output exactly
+    with torch.no_grad():
+        layer.conv.weight.fill_(1.0)
+    tx = t(x).reshape(5, 1, 1, 1).requires_grad_(True)
+    layer(tx, train=False).sum().backward()
+    np.testing.assert_array_equal(tx.grad.flatten().numpy(), want)
+
+
+def test_dropout_follows_its_generator():
+    """Keep mask from the caller's generator only: the same seed gives the
+    same mask whatever the global generator holds; kept entries scale by
+    1/(1-p), as flax's nn.Dropout; off outside train mode and at p = 0."""
+    from adamml_tpu_torch.ops.dropout import dropout
+
+    x = torch.ones(4000)
+    runs = []
+    for global_seed in (0, 1):
+        torch.manual_seed(global_seed)
+        runs.append(dropout(x, 0.25, True,
+                            torch.Generator().manual_seed(7)))
+    assert torch.equal(runs[0], runs[1])
+    assert set(runs[0].unique().tolist()) == {
+        0.0, torch.tensor(1.0 / 0.75).item()}
+    assert abs(float((runs[0] == 0).float().mean()) - 0.25) < 0.03
+    assert not torch.equal(runs[0], dropout(
+        x, 0.25, True, torch.Generator().manual_seed(8)))
+    assert dropout(x, 0.25, False, None) is x
+    assert dropout(x, 0.0, True, None) is x
+    with pytest.raises(ValueError, match="generator"):
+        dropout(x, 0.25, True, None)
+
+
 def test_gumbel_matches_with_same_noise():
     """The port's hard sample with JAX's own Gumbel noise gives JAX's
     decision. The port's forward value is the exact one-hot; JAX's
@@ -145,10 +206,12 @@ def test_cross_entropy_and_topk_match():
             tlosses.cross_entropy(t(logits), t(tgt)).item(),
             float(jlosses.cross_entropy(jnp.asarray(logits),
                                         jnp.asarray(tgt))), rtol=1e-6)
-        ours = tsteps._topk_metrics(t(logits), t(tgt))
-        theirs = jsteps._topk_metrics(jnp.asarray(logits), jnp.asarray(tgt))
-        for k in ("top1", "top5"):
-            np.testing.assert_allclose(float(ours[k]), float(theirs[k]))
+        # all-equal logits: lax.top_k ranks ties by class index
+        for lg in (logits, np.zeros_like(logits)):
+            ours = tsteps._topk_metrics(t(lg), t(tgt))
+            theirs = jsteps._topk_metrics(jnp.asarray(lg), jnp.asarray(tgt))
+            for k in ("top1", "top5"):
+                np.testing.assert_allclose(float(ours[k]), float(theirs[k]))
 
 
 def test_channel_rules_match():

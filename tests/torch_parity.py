@@ -48,5 +48,20 @@ def zero_noise_torch(generator, logits, tau):
     return (logits.argmax(-1) == 1).float()
 
 
+def st_zero_noise_jax(rng, logits, tau):
+    """gumbel_decision with zero noise and the straight-through gradient
+    (tests/test_parity_training.py:52-55): forward the hard argmax, backward
+    the softmax's."""
+    y = jax.nn.softmax(logits / tau, axis=-1)
+    hard = (jnp.argmax(logits, axis=-1) == 1).astype(jnp.float32)
+    return hard + y[..., 1] - jax.lax.stop_gradient(y[..., 1])
+
+
+def st_zero_noise_torch(generator, logits, tau):
+    y = torch.softmax(logits / tau, dim=-1)
+    hard = (logits.argmax(-1) == 1).float()
+    return hard + y[..., 1] - y[..., 1].detach()
+
+
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
