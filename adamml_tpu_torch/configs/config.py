@@ -60,7 +60,8 @@ class ModelConfig:
     # eval-only conditional compute; not ported yet (models/joint_net.py)
     eval_capacity: Optional[float] = None
     capacity_groups: Optional[int] = None
-    # the depthwise kernel is not ported yet (models/mobilenet_v2.py)
+    # every 3x3 depthwise layer through the hand-written depthwise kernel
+    # (ops/kernels/depthwise.py), with XLA's "SAME" padding
     use_pallas_dw: bool = False
     # fused stage-boundary bn-apply + add + relu + temporal max-pool kernel
     # (ops/kernels/tpool_fused.py); False runs the plain composition

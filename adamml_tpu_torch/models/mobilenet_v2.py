@@ -12,6 +12,11 @@ Activations are NHWC with frames folded into the batch. In train mode every
 BN takes per-segment moments: ``seq_groups`` segments folded clip-major into
 the batch, ``seq_inner`` the frame count at that layer (it halves at each
 temporal pool).
+
+``use_pallas_dw=True`` runs every 3x3 depthwise layer (17 of them, 4 at
+stride 2) through the hand-written depthwise kernel, whatever its shape; as
+in the JAX package this is a different function from the default, since its
+padding is "SAME" rather than symmetric (``_DepthwiseConv``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import dropout
+from ..ops.kernels.depthwise import depthwise_conv3x3
 from ..ops.temporal import temporal_pool
 from .layers import Conv, Dense
 from .norm import GroupedBatchNorm
@@ -53,6 +59,22 @@ def make_divisible(v: float, divisor: int = 8,
     return new_v
 
 
+class _DepthwiseConv(Conv):
+    """3x3 depthwise conv with ``Conv``'s parameter (``weight``
+    (C, 1, 3, 3), so the state dict is the same with the flag on or off)
+    through the hand-written depthwise kernel (ops/kernels/depthwise.py),
+    which pads XLA's "SAME" way: (0, 1) at stride 2 on an even size, where
+    ``Conv`` pads (1, 1). The weight is cast to the activations' dtype
+    first, as the JAX module does."""
+
+    def __init__(self, features: int, strides: int, dtype: torch.dtype):
+        super().__init__(features, features, 3, strides, features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)[:, 0].permute(1, 2, 0)  # (3, 3, C)
+        return depthwise_conv3x3(x.contiguous(), w, stride=self.strides)
+
+
 class _ConvBNReLU6(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  strides: int = 1, groups: int = 1,
@@ -61,13 +83,10 @@ class _ConvBNReLU6(nn.Module):
         super().__init__()
         if (use_pallas_dw and groups > 1 and groups == features
                 and kernel == 3):
-            raise NotImplementedError(
-                "use_pallas_dw: the depthwise kernel "
-                "(adamml_tpu/ops/pallas/depthwise.py:78 _dw_kernel, the "
-                "depthwise row of the kernel table in ROADMAP.md) is not "
-                "ported yet")
-        self.conv = Conv(in_features, features, kernel, strides, groups,
-                         dtype)
+            self.conv = _DepthwiseConv(features, strides, dtype)
+        else:
+            self.conv = Conv(in_features, features, kernel, strides, groups,
+                             dtype)
         self.bn = GroupedBatchNorm(features, dtype=dtype)
 
     def forward(self, x, train: bool, seq_groups: int = 1,

@@ -4,14 +4,18 @@ of tools/profile_step.py).
 
     python -m adamml_tpu_torch.tools.profile_eval_step
         [--phase eval|main|policy] [--batch 8] [--steps 3] [--trace PATH]
+        [--use_pallas_dw]
 
 Builds the flagship AdaMML (bf16, seeded random weights), runs two warm-up
 steps of the phase (the eval step, or the train step's main or policy
 phase), then profiles ``--steps`` steps with torch.profiler (CPU and CUDA).
+``--use_pallas_dw`` runs every 3x3 depthwise layer through the hand-written
+depthwise kernel.
 Prints JSON lines: the step's host-clock latency and the peak device memory
 of the profiled steps; the device's busy time (union of kernel intervals)
 and idle share; device time by kernel class (convolution, matmul,
-elementwise, reduction, the fused epilogue kernels, other); and the top
+elementwise, reduction, the fused epilogue kernels, the depthwise kernel,
+other); and the top
 kernels by device time. ``--trace`` keeps the Chrome trace. Needs a CUDA
 card.
 """
@@ -39,6 +43,7 @@ from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
     ("fused_epilogue", ("tpool_fused",)),
+    ("depthwise_kernel", ("dw3x3_kernel",)),
     ("convolution", ("conv_depthwise", "fprop", "implicit_convolve",
                      "conv2d_", "nchwtonhwc", "nhwctonchw", "addpadding",
                      "winograd")),
@@ -75,12 +80,14 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default="")
+    p.add_argument("--use_pallas_dw", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval_step: no CUDA device", file=sys.stderr)
         return 1
 
     cfg = flagship_cfg()
+    cfg.model.use_pallas_dw = args.use_pallas_dw
     model, name = build_model(cfg)
     inputs = example_inputs(cfg, batch=args.batch, seed=0)
     target = torch.zeros(args.batch, dtype=torch.long, device="cuda")
@@ -145,6 +152,7 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(0)
     print(json.dumps({
         "phase": "profile", "step": args.phase, "arch": name, "card": card,
+        "use_pallas_dw": args.use_pallas_dw,
         "batch_clips": args.batch, "steps": n,
         "latency_ms": [x * 1e3 for x in lat],
         "max_memory_allocated_bytes": peak,

@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (or several):
 
   device      card name, count, and nvidia-smi's name and power limit;
   build       nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once) and prints ptxas' registers, shared
               memory, spills;
-  kernel      the forward kernel against its plain PyTorch version, at the
-              flagship eval shapes and at grouped, float32 and odd-F cases,
-              with CUDA-event times beside the bound;
+  kernel      the fused epilogue's forward kernel against its plain PyTorch
+              version, at the flagship eval shapes and at grouped, float32
+              and odd-F cases, with CUDA-event times beside the bound;
   kernel_bwd  the backward kernel against its plain version, at the three
               flagship train shapes (R = 1, S = 5), float32, odd F, R = 2
               and an engineered tie, with the same timings;
@@ -21,8 +21,7 @@ Phases, each printing one JSON line:
               classes), seeded random weights, 4 requests of 8 clips after
               one warm-up; launch counts zeroed just before and read just
               after; outputs checked against the plain composition
-              (fused_tpool=False) and, at the tiny float32 config, against
-              the same model on the CPU;
+              (fused_tpool=False);
   train       the flagship train step at full width, main phase (SGD on the
               main net) then policy phase (Adam on the policy net), 8 clips
               a step, 1 warm-up and 3 timed steps each; launch counts zeroed
@@ -30,7 +29,26 @@ Phases, each printing one JSON line:
               decisions, which parameters and statistics moved;
   train_vs_plain  one main-phase step with fused_tpool=False on the same
               weights and batch: loss and updates against the fused step;
-  tiny_train  one float32 step of each phase on the card against the CPU;
+  serve_dw    the same eval step with use_pallas_dw=True: every 3x3
+              depthwise layer of the three MobileNetV2s runs the depthwise
+              kernel (51 launches a batch beside the epilogue's 3); then
+              the same weights and batch with the depthwise op patched to
+              its plain version (0 kernel launches) for comparison;
+  train_dw    both train phases with use_pallas_dw=True, with the
+              depthwise kernel's forward and input-gradient launches of
+              every step asserted (main 51 + 13, policy 85 + 26: the
+              policy trunks' remat runs their forward again);
+  kernel_dw   the depthwise kernel against its plain version at every
+              distinct layer of serve_dw (bf16, timed, with cuDNN's
+              depthwise convolution as the library yardstick), and at
+              float32, odd sizes, asymmetric stride-2 padding, an affine
+              with ReLU6, C % 8 != 0 and the flipped-tap input gradient;
+  tiny_reference, tiny_train  the tiny float32 config on the card against
+              the CPU (eval forward; one step of each phase), then the same
+              with use_pallas_dw=True (tiny_dw_reference, tiny_dw_train);
+  tools       the stage-boundary prototype kernel against its plain version,
+              then both kernel tools (adamml_tpu_torch/tools/bench_depthwise
+              and bench_tpool) at their shapes;
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -44,31 +62,41 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.models import policy_net as tpolicy
+from adamml_tpu_torch.models.mobilenet_v2 import _DepthwiseConv
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.ops.augment import policy_stream
 from adamml_tpu_torch.ops.kernels import build
+from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
+from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
+from adamml_tpu_torch.tools import bench_depthwise, bench_tpool
+from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                           bound_ms, event_ms,
+                                           l2_flush_buffer, nvidia_smi,
+                                           within_one_bf16_ulp)
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
                                           make_adamml_train_step)
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the tensor
-# cores; the bound of a kernel is the larger of bytes/rate and ops/rate
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-L2_FLUSH_BYTES = 256 << 20
 # the train step's settings (bench.py:156-161)
 LR, P_LR, COST, GAMMAS = 1e-3, 1e-2, [1.0, 0.05], 10.0
+COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts)
+# depthwise launches (forward, input gradient) of one flagship step with
+# use_pallas_dw=True: 17 layers in each of three MobileNetV2s; the main
+# phase adds the audio backbone's 13 stride-1 input gradients; the policy
+# phase adds the two trunks' forward again (remat) and their 26
+DW_STEP = {"eval": (51, 0), "main": (51, 13), "policy": (85, 26)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -80,34 +108,20 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def zero_counts() -> None:
+    for counts in COUNTS:
+        for k in counts:
+            counts[k] = 0
 
 
-def event_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
-    """Mean CUDA-event time of ``fn`` over ``iters`` runs after ``warmup``;
-    ``flush`` (a buffer zeroed between runs, outside the timed span) evicts
-    the L2 cache so every run reads its inputs from device memory. A spin
-    of about 60 ms queued first keeps the card busy while the host queues
-    every run, so no host gap between the events is counted as device
-    time."""
-    for _ in range(warmup):
-        fn()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(100_000_000)
-    for start, end in pairs:
-        if flush is not None:
-            flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+def all_counts() -> dict:
+    return {k: v for counts in COUNTS for k, v in counts.items()}
+
+
+def dw_launches(before: dict) -> tuple:
+    """(forward, input-gradient) depthwise launches since ``before``."""
+    return (dwk.launch_counts[dwk.KERNEL] - before[dwk.KERNEL],
+            dwk.launch_counts[dwk.KERNEL_DX] - before[dwk.KERNEL_DX])
 
 
 def host_call_ms(fn, iters: int = 50) -> float:
@@ -122,14 +136,6 @@ def host_call_ms(fn, iters: int = 50) -> float:
     dt = (time.perf_counter() - t0) / iters
     torch.cuda.synchronize()
     return dt * 1e3
-
-
-def within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
-    g, w = got.float(), want.float()
-    _, e = torch.frexp(w)
-    ulp = torch.where(w == 0, torch.zeros_like(w),
-                      torch.ldexp(torch.ones_like(w), e - 8))
-    return bool(((g - w).abs() <= ulp).all())
 
 
 def tpool_work(n, f, h, w, c, itemsize):
@@ -158,7 +164,7 @@ KERNEL_CASES = [
 
 def kernel_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    flush = l2_flush_buffer(dev)
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bytes_s": 0.0, "ops_s": 0.0}
     for label, n, f, h, w, c, r, s, dtype, timed in KERNEL_CASES:
@@ -265,7 +271,7 @@ def kernel_bwd_phase(dev) -> dict:
     their largest entry: float32 sums of up to F*H*W*N/(R*S) terms (200,704
     at stage 1) taken in another order."""
     gen = torch.Generator(device=dev).manual_seed(10)
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    flush = l2_flush_buffer(dev)
     res = {"max_abs_err": 0.0, "dab_max_rel_err": 0.0, "ms": 0.0,
            "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0,
            "stages": {}}
@@ -337,8 +343,15 @@ def kernel_bwd_phase(dev) -> dict:
     return res
 
 
-def serve_phase(dev, card: str) -> dict:
+def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
+    """The flagship eval step, 4 requests of 8 clips after one warm-up, then
+    the same weights and first batch through the plain route: the
+    composition (fused_tpool=False) or, with use_pallas_dw, the depthwise op
+    patched to its plain version. Returns the launches and, with the flag,
+    the (shape, stride) of every depthwise layer of one batch."""
+    label = "serve_dw" if use_pallas_dw else "serve"
     cfg = flagship_cfg()
+    cfg.model.use_pallas_dw = use_pallas_dw
     batch, s = 8, cfg.model.num_segments
     num_classes = cfg.model.num_classes
     model, name = build_model(cfg)
@@ -348,15 +361,20 @@ def serve_phase(dev, card: str) -> dict:
     batches = [(example_inputs(cfg, batch=batch, seed=100 + k),
                 torch.randint(0, num_classes, (batch,), generator=gen,
                               device=dev)) for k in range(5)]
+    layers = []  # (input shape, stride) of each depthwise call, batch 0
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: layers.append((tuple(args[0].shape),
+                                              mod.strides)))
+        for m in model.modules() if isinstance(m, _DepthwiseConv)]
+    want_dw = DW_STEP["eval"] if use_pallas_dw else (0, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: counts zeroed just before, read just after
-    for k in tp.launch_counts:
-        tp.launch_counts[k] = 0
+    zero_counts()
     latencies, first = [], None
     for i, (inputs, target) in enumerate(batches):
-        before = tp.launch_counts[tp.KERNEL]
+        before = all_counts()
         t0 = time.perf_counter()
         logits, decisions, loss = step(state, inputs, target, seed=i)
         torch.cuda.synchronize()
@@ -369,16 +387,20 @@ def serve_phase(dev, card: str) -> dict:
               f"decisions {decisions.shape}")
         check(set(decisions.unique().tolist()) <= {0.0, 1.0},
               "decisions outside {0, 1}")
-        check(tp.launch_counts[tp.KERNEL] - before == 3,
-              f"batch {i}: {tp.launch_counts[tp.KERNEL] - before} kernel "
-              "launches, expected 3 (stage boundaries 1-3)")
+        fwd = tp.launch_counts[tp.KERNEL] - before[tp.KERNEL]
+        check(fwd == 3 and dw_launches(before) == want_dw,
+              f"batch {i}: {fwd} epilogue and {dw_launches(before)} "
+              f"depthwise launches, expected 3 (stage boundaries 1-3) and "
+              f"{want_dw}")
         if i == 0:
             first = (logits, decisions)
+            for h in hooks:
+                h.remove()
         else:  # batch 0 is the warm-up
             latencies.append(dt)
-    launches = dict(tp.launch_counts)
+    launches = all_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    emit("serve", arch=name, card=card, batch_clips=batch,
+    emit(label, arch=name, card=card, batch_clips=batch,
          requests=len(latencies), warmup=1,
          latency_ms=[x * 1e3 for x in latencies],
          clips_per_s=[batch / x for x in latencies],
@@ -387,32 +409,50 @@ def serve_phase(dev, card: str) -> dict:
          timing="host clock around each step, ending in "
                 "torch.cuda.synchronize()")
 
-    # the same batch and weights through the plain composition
-    cfg_plain = flagship_cfg()
-    cfg_plain.model.fused_tpool = False
-    plain, _ = build_model(cfg_plain)
-    plain.load_state_dict(model.state_dict())
-    p_logits, p_dec, _ = make_adamml_eval_step(plain)(
-        state, batches[0][0], batches[0][1], seed=0)
-    torch.cuda.synchronize()
-    check(launches == tp.launch_counts, "the plain composition launched the "
-          "fused kernel")
+    # the same batch and weights through the plain route
+    if use_pallas_dw:
+        real = dwk._launch
+        dwk._launch = lambda x, w, sc, b, stride, relu6, key=dwk.KERNEL: \
+            dwk.reference_impl(x, w, sc, b, stride, relu6)
+        plain, route = model, "depthwise op patched to reference_impl"
+    else:
+        cfg_plain = flagship_cfg()
+        cfg_plain.model.fused_tpool = False
+        plain, _ = build_model(cfg_plain)
+        plain.load_state_dict(model.state_dict())
+        route = "fused_tpool=False"
+    before = all_counts()
+    try:
+        p_logits, p_dec, _ = make_adamml_eval_step(plain)(
+            state, batches[0][0], batches[0][1], seed=0)
+        torch.cuda.synchronize()
+    finally:
+        if use_pallas_dw:
+            dwk._launch = real
+    after = all_counts()
+    if use_pallas_dw:
+        check(dw_launches(before) == (0, 0), "the plain route launched the "
+              "depthwise kernel")
+    else:
+        check(after == before, "the plain composition launched a kernel")
     scale = float(first[0].abs().max())
     diff = float((p_logits - first[0]).abs().max())
     # each stage boundary rounds to bf16 once in the kernel and twice in the
     # composition (after the BN apply and after the add): up to 1 bf16 ulp
     # (2^-8 relative) apart, which the later layers carry to the logits;
-    # 2% of the largest logit (about 5 ulps) bounds it
+    # 2% of the largest logit (about 5 ulps) bounds it. The depthwise
+    # kernel rounds where its plain version does, so there the two are
+    # expected equal.
     tol = 0.02 * max(scale, 1.0)
-    check(torch.equal(p_dec, first[1]), "decisions differ from the plain "
-          "composition")
-    check(diff <= tol, f"logits differ from the plain composition by {diff} "
-          f"> {tol}")
-    emit("serve_vs_plain", max_abs_logit=scale, max_abs_diff=diff,
-         tolerance=tol, decisions_equal=True)
+    check(torch.equal(p_dec, first[1]), f"decisions differ from the plain "
+          f"route ({route})")
+    check(diff <= tol, f"logits differ from the plain route ({route}) by "
+          f"{diff} > {tol}")
+    emit(label + "_vs_plain", route=route, max_abs_logit=scale,
+         max_abs_diff=diff, tolerance=tol, decisions_equal=True)
     del plain, model, step, batches
     torch.cuda.empty_cache()
-    return {"launches": launches[tp.KERNEL]}
+    return {"launches": launches, "dw_layers": Counter(layers)}
 
 
 def _train_state(model, cfg) -> TrainState:
@@ -436,11 +476,13 @@ def _snapshot(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def train_phase(dev, card: str) -> dict:
+def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
     """The flagship train step at full width: the main phase, then the
     policy phase, on one model and state, as the alternating curriculum
-    runs them."""
+    runs them. Returns each phase's launches."""
+    label = "train_dw" if use_pallas_dw else "train"
     cfg = flagship_cfg()
+    cfg.model.use_pallas_dw = use_pallas_dw
     batch, s = 8, cfg.model.num_segments
     num_classes = cfg.model.num_classes
     model, name = build_model(cfg)
@@ -456,15 +498,15 @@ def train_phase(dev, card: str) -> dict:
     for phase in ("main", "policy"):
         step = _make_step(model, phase)
         want_bwd = 3 if phase == "main" else 0
+        want_dw = DW_STEP[phase] if use_pallas_dw else (0, 0)
         start = _snapshot(model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         # this path: counts zeroed just before, read just after
-        for k in tp.launch_counts:
-            tp.launch_counts[k] = 0
+        zero_counts()
         latencies, losses = [], []
         for i, (inputs, target) in enumerate(batches):
-            before = dict(tp.launch_counts)
+            before = all_counts()
             t0 = time.perf_counter()
             m = step(state, inputs, target, LR, P_LR, COST, seed=i)
             torch.cuda.synchronize()
@@ -477,13 +519,16 @@ def train_phase(dev, card: str) -> dict:
             bwd = tp.launch_counts[tp.KERNEL_BWD] - before[tp.KERNEL_BWD]
             check(fwd == 3 and bwd == want_bwd,
                   f"{phase} step {i}: {fwd} forward and {bwd} backward "
-                  f"kernel launches, expected 3 and {want_bwd}")
+                  f"epilogue launches, expected 3 and {want_bwd}")
+            check(dw_launches(before) == want_dw,
+                  f"{phase} step {i}: {dw_launches(before)} depthwise "
+                  f"(forward, input-gradient) launches, expected {want_dw}")
             check(set(seen[-1].unique().tolist()) <= {0.0, 1.0},
                   f"{phase} step {i}: decisions outside {{0, 1}}")
             losses.append(vals)
             if i:  # step 0 is the warm-up
                 latencies.append(dt)
-        launches = dict(tp.launch_counts)
+        launches = all_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         end = _snapshot(model)
         params = dict(model.named_parameters())
@@ -508,7 +553,7 @@ def train_phase(dev, card: str) -> dict:
               "parameters moved")
         check(moved["stats_main"] > 0 and moved["stats_policy"] > 0,
               f"{phase}: BN statistics of a subnet did not move: {moved}")
-        emit("train", curriculum_phase=phase, arch=name, card=card,
+        emit(label, curriculum_phase=phase, arch=name, card=card,
              batch_clips=batch,
              steps=len(latencies), warmup=1,
              latency_ms=[x * 1e3 for x in latencies],
@@ -610,15 +655,17 @@ def _st_zero_noise(generator, logits, tau):
     return hard + y[..., 1] - y[..., 1].detach()
 
 
-def tiny_train_phase(dev) -> None:
+def tiny_train_phase(dev, use_pallas_dw: bool = False) -> None:
     """One float32 step of each phase from the same weights, on the card
     and on the CPU: 8 clips at 64x64 (at fewer samples per BN group the
     tiny model's gradient is ill-conditioned), dropout 0, zero-noise
     decisions, TF32 off. Losses within 1e-3 relative; SGD updates each
     within 0.1 * lr; 99% of the Adam updates within 0.1 * p_lr (Adam maps
     each gradient element to about +-p_lr, so elements within float32
-    noise of 0 may take either sign)."""
+    noise of 0 may take either sign). With use_pallas_dw the card's step
+    launches the depthwise kernel as the flagship's does."""
     cfg = flagship_cfg(tiny=True)
+    cfg.model.use_pallas_dw = use_pallas_dw
     cfg.model.dropout = 0.0
     cfg.data.input_size = 64
     x = example_inputs(cfg, batch=8, device="cpu", seed=5)
@@ -634,9 +681,15 @@ def tiny_train_phase(dev) -> None:
             for d in (dev, torch.device("cpu")):
                 model, _ = build_model(cfg, device=d)
                 model.load_state_dict(start)
+                before = all_counts()
                 m = _make_step(model, phase)(
                     _train_state(model, cfg), [a.to(d) for a in x],
                     target.to(d), LR, P_LR, COST, seed=0)
+                if d.type == "cuda":
+                    want = DW_STEP[phase] if use_pallas_dw else (0, 0)
+                    check(dw_launches(before) == want,
+                          f"tiny {phase}: {dw_launches(before)} depthwise "
+                          f"launches, expected {want}")
                 out[d.type] = (float(m["loss"]),
                                {k: v.cpu() for k, v in
                                 model.state_dict().items()})
@@ -662,13 +715,14 @@ def tiny_train_phase(dev) -> None:
                                share_within_0p1_lr=close / total)
     finally:
         tpolicy.gumbel_decision = real
-    emit("tiny_train", **line)
+    emit("tiny_dw_train" if use_pallas_dw else "tiny_train", **line)
 
 
-def tiny_reference_phase(dev) -> None:
+def tiny_reference_phase(dev, use_pallas_dw: bool = False) -> None:
     """Tiny float32 config: the policy logits and the decision-masked main
     net on the card against the same weights on the CPU."""
     cfg = flagship_cfg(tiny=True)
+    cfg.model.use_pallas_dw = use_pallas_dw
     gpu, _ = build_model(cfg)
     cpu, _ = build_model(cfg, device="cpu")
     x_cpu = example_inputs(cfg, batch=4, device="cpu", seed=3)
@@ -676,6 +730,7 @@ def tiny_reference_phase(dev) -> None:
     size = cfg.model.policy_input_size
     dec = (torch.arange(2 * n * s) % 3 != 0).float().reshape(2, n * s)
     outs = []
+    before = all_counts()
     for model, x, d in ((gpu, [a.to(dev) for a in x_cpu], dec.to(dev)),
                         (cpu, x_cpu, dec)):
         with torch.no_grad():
@@ -685,11 +740,250 @@ def tiny_reference_phase(dev) -> None:
                 [a.reshape((n * s,) + tuple(a.shape[2:])) for a in x], d,
                 seq_groups=s)
         outs.append((p_logits.cpu(), m_logits.cpu()))
+    want = DW_STEP["eval"] if use_pallas_dw else (0, 0)
+    check(dw_launches(before) == want, f"tiny forward: "
+          f"{dw_launches(before)} depthwise launches, expected {want}")
     errs = [float((g - c).abs().max()) for g, c in zip(*outs)]
     # float32 with TF32 off: cuDNN and the CPU sum in other orders
     check(max(errs) <= 1e-3, f"card vs CPU at the tiny config: {errs}")
-    emit("tiny_reference", policy_logits_err=errs[0],
+    emit("tiny_dw_reference" if use_pallas_dw else "tiny_reference",
+         policy_logits_err=errs[0],
          main_logits_err=errs[1], tolerance=1e-3)
+
+
+def dw_work(x_shape, stride, itemsize):
+    """(bytes, float32 ops) of one depthwise call: x read once, out written
+    once, the taps (x's dtype) and the float32 scale and bias read once;
+    18 operations (9 multiplies, 9 adds) per output element."""
+    b, h, w, c = x_shape
+    oh, ow = dwk.same_pads(h, stride)[0], dwk.same_pads(w, stride)[0]
+    nbytes = (b * h * w * c + b * oh * ow * c + 9 * c) * itemsize + 8 * c
+    return nbytes, 18 * b * oh * ow * c
+
+
+def _dw_inputs(shape, dtype, gen, dev, affine=False):
+    b, h, w, c = shape
+    x = (2.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    taps = (0.3 * torch.randn((3, 3, c), generator=gen, device=dev)).to(dtype)
+    if not affine:
+        return x, taps, None, None
+    return (x, taps, 1.0 + 0.3 * torch.randn(c, generator=gen, device=dev),
+            0.5 * torch.randn(c, generator=gen, device=dev))
+
+
+def _dw_check(label, got, want, dtype) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    if dtype == torch.bfloat16:
+        ok, tol = within_one_bf16_ulp(got, want), "1 bf16 ulp"
+    else:
+        ok = bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+        tol = "1e-6 relative"
+    check(ok, f"{label}: depthwise kernel disagrees with its plain version "
+              f"beyond {tol} (max abs err {err})")
+    return err
+
+
+def _cudnn_dw(x, taps, stride):
+    """One PyTorch call for the same function (cuDNN's depthwise
+    convolution on the channels_last view); at stride 2 the SAME padding
+    is asymmetric, so F.pad comes first: two calls."""
+    c = x.shape[-1]
+    wc = taps.permute(2, 0, 1)[:, None].contiguous()  # (C, 1, 3, 3)
+    if stride == 1:
+        return lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, padding=1,
+                                groups=c)
+    _, ph_lo, ph_hi = dwk.same_pads(x.shape[1], stride)
+    _, pw_lo, pw_hi = dwk.same_pads(x.shape[2], stride)
+    return lambda: F.conv2d(F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+                            .permute(0, 3, 1, 2), wc, stride=stride,
+                            groups=c)
+
+
+# (label, (B, H, W, C), stride, dtype, affine with ReLU6): float32, odd
+# sizes, stride 2 on an even size (pads (0, 1)), the affine with ReLU6 and
+# C % 8 != 0 (the scalar path)
+DW_EXTRA_CASES = [
+    ("f32_9x11_s1", (4, 9, 11, 32), 1, torch.float32, False),
+    ("f32_9x11_s2", (4, 9, 11, 32), 2, torch.float32, False),
+    ("bf16_6x6_s2", (4, 6, 6, 24), 2, torch.bfloat16, False),
+    ("f32_6x6_s2_affine_relu6", (4, 6, 6, 24), 2, torch.float32, True),
+    ("bf16_affine_relu6_s1", (8, 20, 20, 96), 1, torch.bfloat16, True),
+    ("bf16_affine_relu6_s2", (8, 20, 20, 96), 2, torch.bfloat16, True),
+    ("bf16_C12_s1", (4, 7, 9, 12), 1, torch.bfloat16, True),
+    ("f32_C12_s2", (4, 7, 9, 12), 2, torch.float32, True),
+]
+
+
+def kernel_dw_phase(dev, layers: Counter) -> dict:
+    """The depthwise kernel against reference_impl at every distinct
+    (input shape, stride) of one serve_dw batch (bf16, identity affine, no
+    clip, as _DepthwiseConv calls it), timed beside the plain version and
+    cuDNN; then the extra cases and the flipped-tap input gradient. The
+    kernel rounds once where its plain version does, with no FMA
+    contraction: bit-equal is expected, 1 bf16 ulp (float32: 1e-6
+    relative) is the tolerance. Sums weight each layer by its count in one
+    eval step."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    flush = l2_flush_buffer(dev)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0, "layers": 0}
+    for (shape, stride), count in sorted(layers.items()):
+        x, taps, _, _ = _dw_inputs(shape, torch.bfloat16, gen, dev)
+        with torch.no_grad():
+            got = dwk.depthwise_conv3x3(x, taps, stride=stride)
+            ones = torch.ones(shape[-1], device=dev)
+            zeros = torch.zeros(shape[-1], device=dev)
+            want = dwk.reference_impl(x, taps, ones, zeros, stride, False)
+            lib = _cudnn_dw(x, taps, stride)
+            lib_err = float((lib().permute(0, 2, 3, 1).float()
+                             - want.float()).abs().max())
+            torch.cuda.synchronize()
+            err = _dw_check(f"{shape} s{stride}", got, want, torch.bfloat16)
+            nbytes, ops = dw_work(shape, stride, 2)
+            bound, bound_by = bound_ms(nbytes, ops)
+            k_ms = event_ms(lambda: dwk.depthwise_conv3x3(x, taps,
+                                                          stride=stride),
+                            flush=flush)
+            p_ms = event_ms(lambda: dwk.reference_impl(
+                x, taps, ones, zeros, stride, False), iters=5, warmup=1,
+                flush=flush)
+            l_ms = event_ms(lib, flush=flush)
+            host_ms = host_call_ms(lambda: dwk.depthwise_conv3x3(
+                x, taps, stride=stride))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                       ("library_ms", l_ms),
+                       ("bytes_s", nbytes / HBM_BYTES_PER_S),
+                       ("ops_s", ops / F32_OPS_PER_S), ("layers", 1)):
+            res[key] += count * v
+        emit("kernel_dw", case="flagship", shape=list(shape), stride=stride,
+             dtype="bfloat16", calls_per_eval_step=count, max_abs_err=err,
+             tolerance="1 bf16 ulp", kernel_ms=k_ms, plain_ms=p_ms,
+             bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
+             achieved_GBps=nbytes / k_ms / 1e6, share_of_bound=bound / k_ms,
+             library_ms=l_ms,
+             library="F.conv2d(groups=C) on the channels_last view" + (
+                 "" if stride == 1 else ", after F.pad (two calls)"),
+             library_vs_plain_max_abs_diff=lib_err, wrapper_host_ms=host_ms,
+             timing="CUDA events, kernel and library mean of 20 after 3 "
+                    "warm-up, plain mean of 5 after 1, L2 flushed between "
+                    "launches")
+        del x, got, want, lib
+    check(res["layers"] == DW_STEP["eval"][0],
+          f"{res['layers']} depthwise layers in one eval step, expected "
+          f"{DW_STEP['eval'][0]}")
+
+    for label, shape, stride, dtype, affine in DW_EXTRA_CASES:
+        x, taps, scale, bias = _dw_inputs(shape, dtype, gen, dev, affine)
+        got = dwk.depthwise_conv3x3(x, taps, stride=stride, scale=scale,
+                                    bias=bias, relu6=affine)
+        c = shape[-1]
+        want = dwk.reference_impl(
+            x, taps, scale if affine else torch.ones(c, device=dev),
+            bias if affine else torch.zeros(c, device=dev), stride, affine)
+        torch.cuda.synchronize()
+        err = _dw_check(label, got, want, dtype)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        emit("kernel_dw", case=label, shape=list(shape), stride=stride,
+             dtype=str(dtype).replace("torch.", ""), affine_relu6=affine,
+             max_abs_err=err, tolerance="1 bf16 ulp" if dtype ==
+             torch.bfloat16 else "1e-6 relative")
+
+    # the stride-1 input gradient at the largest stride-1 flagship layer:
+    # autograd launches the kernel on the masked cotangent with flipped
+    # taps; the same call through the plain version must agree
+    shape = max((s for s, st in layers if st == 1), key=math.prod)
+    x, taps, scale, bias = _dw_inputs(shape, torch.bfloat16, gen, dev, True)
+    x.requires_grad_(True)
+    out = dwk.depthwise_conv3x3(x, taps, stride=1, scale=scale, bias=bias,
+                                relu6=True)
+    ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+    before = dict(dwk.launch_counts)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    check(dwk.launch_counts[dwk.KERNEL_DX] == before[dwk.KERNEL_DX] + 1,
+          "the stride-1 input gradient did not launch the kernel")
+    with torch.no_grad():
+        outf = out.float()
+        gc = (ct.float() * ((outf > 0) & (outf < 6)).float() * scale).to(
+            x.dtype)
+        want = dwk.reference_impl(gc, taps.flip(0, 1), torch.ones_like(scale),
+                                  torch.zeros_like(bias), 1, False)
+    err = _dw_check("flipped-tap dx", x.grad, want, torch.bfloat16)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    emit("kernel_dw", case="flipped_tap_dx", shape=list(shape), stride=1,
+         dtype="bfloat16", max_abs_err=err, tolerance="1 bf16 ulp")
+    del x, out, ct, gc, want
+    torch.cuda.empty_cache()
+    return res
+
+
+# (N, F, H, W, C, dtype): the prototype against its plain version, beside
+# the tools' three stage shapes: float32, odd frame counts, one frame
+PROTO_CASES = [
+    (8, 8, 14, 14, 64, torch.bfloat16), (8, 8, 14, 14, 64, torch.float32),
+    (10, 3, 9, 9, 32, torch.bfloat16), (6, 5, 12, 12, 48, torch.float32),
+    (4, 1, 8, 8, 16, torch.bfloat16),
+]
+
+
+def tools_phase(dev) -> dict:
+    """The prototype kernel against its plain version (it rounds z and the
+    residual add where the plain version does: bit-equal expected, 1 bf16
+    ulp or 1e-6 relative the tolerance), then the path of the kernel tools:
+    counts zeroed, both tools run at their shapes, counts read."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    err_max = 0.0
+    for n, f, h, w, c, dtype in PROTO_CASES:
+        y = torch.randn((n, f, h, w, c), generator=gen, device=dev).to(dtype)
+        ident = torch.randn((n, f, h, w, c), generator=gen,
+                            device=dev).to(dtype)
+        a = 1.0 + 0.3 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        got = tpp.tpool_proto(y, ident, a, b)
+        want = tpp.reference_impl(y, ident, a, b)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.bfloat16:
+            ok, tol = within_one_bf16_ulp(got, want), "1 bf16 ulp"
+        else:
+            ok = bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+            tol = "1e-6 relative"
+        check(ok, f"tpool_proto {(n, f, h, w, c)} {dtype}: beyond {tol} of "
+                  f"its plain version (max abs err {err})")
+        err_max = max(err_max, err)
+        emit("tools", case="tpool_proto_vs_plain", shape=[n, f, h, w, c],
+             dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+             tolerance=tol)
+
+    # the tools' path: counts zeroed just before, read just after
+    zero_counts()
+    dw_rows = bench_depthwise.run(dev)
+    tp_rows = bench_tpool.run(dev)
+    launches = all_counts()
+    for row in dw_rows:
+        emit("tools", tool="bench_depthwise", **row)
+    res = {"proto_max_abs_err": err_max, "launches": launches, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
+    for row in tp_rows:
+        emit("tools", tool="bench_tpool", **row)
+        if row["row"] == "kernel":
+            check(row["within_1ulp_of_plain"], f"bench_tpool {row['stage']}: "
+                  "the prototype kernel beyond 1 bf16 ulp of its plain "
+                  "version")
+            nbytes, ops = tpool_work(*row["shape"], 2)
+            res["ms"] += row["ms"]
+            res["bound_ms"] += bound_ms(nbytes, ops)[0]
+            res["bytes_s"] += nbytes / HBM_BYTES_PER_S
+            res["ops_s"] += ops / F32_OPS_PER_S
+        if row["row"] == "tpool_slice":
+            res["plain_ms"] += row["ms"]
+    check(launches[tpp.KERNEL] > 0 and launches[dwk.KERNEL] > 0,
+          f"the tools launched no kernel: {launches}")
+    res["dw_rows"] = dw_rows
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -705,7 +999,7 @@ def main() -> int:
     emit("device", kind=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [tp.KERNEL, tp.KERNEL_BWD]
+    kernels = [tp.KERNEL, tp.KERNEL_BWD, dwk.KERNEL, tpp.KERNEL]
     t0 = time.perf_counter()
     build.build(kernels)
     ptxas = {k: [ln.strip() for ln in build.build_log(k).splitlines()
@@ -717,23 +1011,35 @@ def main() -> int:
     sres = serve_phase(dev, smi)
     tres = train_phase(dev, smi)
     train_vs_plain_phase(dev)
+    sdw = serve_phase(dev, smi, use_pallas_dw=True)
+    tdw = train_phase(dev, smi, use_pallas_dw=True)
+    dres = kernel_dw_phase(dev, sdw["dw_layers"])
     tiny_reference_phase(dev)
     tiny_train_phase(dev)
+    tiny_reference_phase(dev, use_pallas_dw=True)
+    tiny_train_phase(dev, use_pallas_dw=True)
+    ores = tools_phase(dev)
+
+    def bound_by(res):
+        return "bytes" if res["bytes_s"] >= res["ops_s"] else "operations"
 
     print(json.dumps({"kernels": [{
         "name": tp.KERNEL, "route": "cuda",
         "source": "adamml_tpu_torch/csrc/tpool_fused.cu",
         "replaces": "adamml_tpu/ops/pallas/tpool_fused.py:71",
         "also_replaces": ["adamml_tpu/ops/pallas/tpool_fused.py:345"],
-        "launches": sres["launches"], "max_abs_err": kres["max_abs_err"],
+        "launches": sres["launches"][tp.KERNEL],
+        "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
-        "bound_ms": kres["bound_ms"],
-        "bound_by": ("bytes" if kres["bytes_s"] >= kres["ops_s"]
-                     else "operations"),
+        "bound_ms": kres["bound_ms"], "bound_by": bound_by(kres),
         "library_ms": None,
-        "launches_by_path": {"serve": sres["launches"],
-                             "train_main": tres["main"][tp.KERNEL],
-                             "train_policy": tres["policy"][tp.KERNEL]},
+        "launches_by_path": {
+            "serve": sres["launches"][tp.KERNEL],
+            "train_main": tres["main"][tp.KERNEL],
+            "train_policy": tres["policy"][tp.KERNEL],
+            "serve_dw": sdw["launches"][tp.KERNEL],
+            "train_dw_main": tdw["main"][tp.KERNEL],
+            "train_dw_policy": tdw["policy"][tp.KERNEL]},
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip eval step; "
                 "launches are the serve path's (5 batches)"}, {
@@ -744,17 +1050,51 @@ def main() -> int:
         "launches": tres["main"][tp.KERNEL_BWD],
         "max_abs_err": bres["max_abs_err"],
         "ms": bres["ms"], "plain_ms": bres["plain_ms"],
-        "bound_ms": bres["bound_ms"],
-        "bound_by": ("bytes" if bres["bytes_s"] >= bres["ops_s"]
-                     else "operations"),
+        "bound_ms": bres["bound_ms"], "bound_by": bound_by(bres),
         "library_ms": None,
-        "launches_by_path": {"train_main": tres["main"][tp.KERNEL_BWD],
-                             "train_policy": tres["policy"][tp.KERNEL_BWD]},
+        "launches_by_path": {
+            "train_main": tres["main"][tp.KERNEL_BWD],
+            "train_policy": tres["policy"][tp.KERNEL_BWD],
+            "train_dw_main": tdw["main"][tp.KERNEL_BWD],
+            "train_dw_policy": tdw["policy"][tp.KERNEL_BWD]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "
                 "max_abs_err is dy's and dident's; launches are the "
-                "main-phase train path's (4 steps)"}]}), flush=True)
+                "main-phase train path's (4 steps)"}, {
+        "name": dwk.KERNEL, "route": "cuda",
+        "source": "adamml_tpu_torch/csrc/depthwise.cu",
+        "replaces": "adamml_tpu/ops/pallas/depthwise.py:78",
+        "launches": sdw["launches"][dwk.KERNEL],
+        "max_abs_err": dres["max_abs_err"],
+        "ms": dres["ms"], "plain_ms": dres["plain_ms"],
+        "bound_ms": dres["bound_ms"], "bound_by": bound_by(dres),
+        "library_ms": dres["library_ms"],
+        "launches_by_path": {
+            "serve_dw": sdw["launches"][dwk.KERNEL],
+            "train_dw_main": {"forward": tdw["main"][dwk.KERNEL],
+                              "input_gradient": tdw["main"][dwk.KERNEL_DX]},
+            "train_dw_policy": {
+                "forward": tdw["policy"][dwk.KERNEL],
+                "input_gradient": tdw["policy"][dwk.KERNEL_DX]},
+            "tools": ores["launches"][dwk.KERNEL]},
+        "note": "ms, plain_ms, bound_ms and library_ms are sums over the "
+                "51 depthwise layers of one 8-clip eval step with "
+                "use_pallas_dw=True (library: cuDNN's depthwise "
+                "convolution, F.pad first at stride 2); launches are the "
+                "serve_dw path's (5 batches)"}, {
+        "name": tpp.KERNEL, "route": "cuda",
+        "source": "adamml_tpu_torch/csrc/tpool_proto.cu",
+        "replaces": "tools/bench_tpool.py:53",
+        "launches": ores["launches"][tpp.KERNEL],
+        "max_abs_err": ores["proto_max_abs_err"],
+        "ms": ores["ms"], "plain_ms": ores["plain_ms"],
+        "bound_ms": ores["bound_ms"], "bound_by": bound_by(ores),
+        "library_ms": None,
+        "launches_by_path": {"tools": ores["launches"][tpp.KERNEL]},
+        "note": "ms, plain_ms and bound_ms are sums over bench_tpool's "
+                "three stage shapes at batch 8; launches are the tools "
+                "path's (timing runs included)"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

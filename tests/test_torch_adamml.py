@@ -36,7 +36,8 @@ from adamml_tpu_torch.ops.augment import policy_stream
 from adamml_tpu_torch.train import steps as tsteps
 from adamml_tpu_torch.train.train_state import EvalState
 
-from torch_parity import flax_variables, t, zero_noise_jax, zero_noise_torch
+from torch_parity import (flax_variables, one_torch_thread, t,  # noqa: F401
+                          zero_noise_jax, zero_noise_torch)
 
 REPO = Path(__file__).resolve().parents[1]
 N = 4
@@ -71,10 +72,12 @@ def _center_rgb_decisions(tmodel, x, params):
     assert margins().abs().min() > 1e-4
 
 
-@pytest.fixture(scope="module")
-def bundle():
+def make_bundle(use_pallas_dw=False):
+    """(cfg, port model, flax variables, inputs, target, the JAX eval
+    step's results) of the tiny flagship, zero-noise decisions centred."""
     cfg = flagship_cfg(tiny=True)
     jcfg = graft._flagship_cfg(tiny=True)
+    cfg.model.use_pallas_dw = jcfg.model.use_pallas_dw = use_pallas_dw
     rs = np.random.RandomState(0)
     x = _inputs(cfg, rs)
     target = rs.randint(0, cfg.model.num_classes, N)
@@ -96,6 +99,11 @@ def bundle():
                 **{k: float(m) for k, m in jsteps._topk_metrics(
                     logits, jnp.asarray(target)).items()}}
     return cfg, tmodel, v, x, target, want
+
+
+@pytest.fixture(scope="module")
+def bundle():
+    return make_bundle()
 
 
 @pytest.fixture

@@ -24,7 +24,7 @@ from adamml_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from adamml_tpu_torch.models.norm import GroupedBatchNorm
 from adamml_tpu_torch.models.resnet_tsn import ResNetTSN
 
-from torch_parity import flax_variables, t
+from torch_parity import flax_variables, one_torch_thread, t  # noqa: F401
 
 TOL = 1e-4
 
@@ -145,8 +145,3 @@ def test_mobilenet_v2(name, kw, shape, features):
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
-
-
-def test_mobilenet_v2_refuses_pallas_dw():
-    with pytest.raises(NotImplementedError, match="depthwise"):
-        MobileNetV2(use_pallas_dw=True)

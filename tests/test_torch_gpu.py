@@ -1,6 +1,8 @@
 """PyTorch port on a CUDA card: the fused epilogue's forward and backward
-kernels against their plain versions, and the tiny float32 eval and train
-steps on the card against the CPU.
+kernels, the depthwise kernel (forward and flipped-tap input gradient) and
+the stage-boundary prototype kernel against their plain versions, and the
+tiny float32 eval and train steps on the card against the CPU, with the
+depthwise flag off and on.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The file imports no JAX, so it also runs on a machine that
@@ -16,7 +18,10 @@ import torch
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
+from adamml_tpu_torch.ops.augment import policy_stream
+from adamml_tpu_torch.ops.kernels import depthwise as tdw
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
+from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
                                           make_adamml_train_step)
@@ -153,18 +158,142 @@ def test_cuda_kernel_refuses_grad_and_bad_args():
         ttp.fused_bn_add_relu_tpool(y.detach(), ident.cpu(), a, b)
 
 
-def test_tiny_eval_step_on_card_matches_cpu():
+# depthwise kernel launches (forward, input gradient) of one tiny step with
+# use_pallas_dw=True: 17 depthwise layers in each MobileNetV2; the main
+# phase's audio backbone backward runs 13 stride-1 input gradients; the
+# policy phase recomputes the two trunks' forward (remat) and runs their 26
+DW_STEP = {"main": (51, 13), "policy": (85, 26)}
+
+
+def _dw_counts():
+    return (tdw.launch_counts[tdw.KERNEL], tdw.launch_counts[tdw.KERNEL_DX])
+
+
+def _dw_args(b, h, w, c, dtype, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    x = (2.0 * torch.randn((b, h, w, c), generator=g)).to(dtype).cuda()
+    taps = torch.randn((3, 3, c), generator=g).to(dtype).cuda()
+    scale = (1.0 + 0.3 * torch.randn(c, generator=g)).cuda()
+    bias = (0.5 * torch.randn(c, generator=g)).cuda()
+    return x, taps, scale, bias
+
+
+DW_SHAPES = [
+    dict(b=4, h=20, w=20, c=96),    # C % 8 == 0: 16-byte vector path
+    dict(b=2, h=9, w=11, c=32),     # odd H and W
+    dict(b=3, h=6, w=6, c=24),      # stride 2 pads (0, 1)
+    dict(b=2, h=7, w=5, c=12),      # C % 8 != 0: scalar path
+]
+
+
+@pytest.mark.parametrize("relu6", [False, True], ids=["linear", "relu6"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_cuda_depthwise_matches_plain(shape, stride, dtype, relu6):
+    """The kernel sums the nine products in the plain version's order with
+    no FMA contraction, then the affine, the clip and one rounding:
+    bit-equal."""
+    _need_card()
+    x, taps, scale, bias = _dw_args(**shape, dtype=dtype)
+    before = _dw_counts()
+    got = tdw.depthwise_conv3x3(x, taps, stride=stride, scale=scale,
+                                bias=bias, relu6=relu6)
+    torch.cuda.synchronize()
+    assert _dw_counts() == (before[0] + 1, before[1])
+    want = tdw.reference_impl(x, taps, scale, bias, stride, relu6)
+    assert got.dtype == dtype and tuple(got.shape) == tuple(want.shape)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_depthwise_gradients(stride, dtype):
+    """Autograd on the card: at stride 1 the input gradient is the kernel
+    again with flipped taps (one KERNEL_DX launch), bit-equal to the plain
+    version of that call; at stride 2 it is a float32 cuDNN convolution.
+    Every gradient within 1e-4 of its largest entry of the same graph on
+    the CPU (float32 library convolutions summed in another order; in bf16
+    one rounding of values that agree to that)."""
+    _need_card()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x, taps, scale, bias = _dw_args(3, 9, 10, 16, dtype)
+        g = torch.Generator().manual_seed(4)
+        ct = torch.randn((3, -(-9 // stride), 5 if stride == 2 else 10, 16),
+                         generator=g).to(dtype)
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_(True)
+                      for t in (x, taps, scale, bias)]
+            before = _dw_counts()
+            out = tdw.depthwise_conv3x3(leaves[0], leaves[1], stride=stride,
+                                        scale=leaves[2], bias=leaves[3],
+                                        relu6=True)
+            out.backward(ct.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert _dw_counts() == (before[0] + 1,
+                                        before[1] + (stride == 1))
+            grads[dev] = [leaf.grad.cpu() for leaf in leaves]
+            if dev == "cuda" and stride == 1:
+                mask = ((out > 0) & (out < 6)).float()
+                gc = (ct.cuda().float() * mask * scale).to(dtype)
+                want = tdw.reference_impl(
+                    gc, leaves[1].detach().flip(0, 1),
+                    torch.ones_like(scale), torch.zeros_like(bias), 1, False)
+                torch.testing.assert_close(leaves[0].grad, want, rtol=0,
+                                           atol=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=1e-4 * float(want.float().abs().max())
+            + (float(want.float().abs().max()) * 2.0 ** -8
+               if dtype == torch.bfloat16 else 0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 5, 8])
+def test_cuda_tpool_proto_matches_plain(f, dtype):
+    """The prototype kernel rounds where its plain version does (z, then the
+    residual add): bit-equal."""
+    _need_card()
+    g = torch.Generator().manual_seed(f)
+    shape = (6, f, 5, 7, 24)
+    y = torch.randn(shape, generator=g).to(dtype).cuda()
+    ident = torch.randn(shape, generator=g).to(dtype).cuda()
+    a = (1.0 + 0.3 * torch.randn(24, generator=g)).cuda()
+    b = (0.1 * torch.randn(24, generator=g)).cuda()
+    before = tpp.launch_counts[tpp.KERNEL]
+    got = tpp.tpool_proto(y, ident, a, b)
+    torch.cuda.synchronize()
+    assert tpp.launch_counts[tpp.KERNEL] == before + 1
+    torch.testing.assert_close(got, tpp.reference_impl(y, ident, a, b),
+                               rtol=0, atol=0)
+
+
+def _no_tf32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tiny_eval_step(use_pallas_dw: bool):
     """Float32 with TF32 off: the same weights and inputs give the same
     logits on the card and on the CPU within 1e-3 (summation order), under
     a policy that selects every segment (rng_policy with threshold -1), so
-    no generator stream enters the comparison."""
+    no generator stream enters the comparison. With the depthwise flag the
+    audio backbone's 17 depthwise layers run the kernel."""
     _need_card()
     cfg = flagship_cfg(tiny=True)
     cfg.model.rng_policy, cfg.model.rng_threshold = True, -1.0
+    cfg.model.use_pallas_dw = use_pallas_dw
     prev = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _no_tf32()
     try:
         x = example_inputs(cfg, batch=4, device="cpu", seed=2)
         target = torch.arange(4) % cfg.model.num_classes
@@ -172,10 +301,13 @@ def test_tiny_eval_step_on_card_matches_cpu():
         for dev in ("cuda", "cpu"):
             model, _ = build_model(cfg, device=dev)
             before = ttp.launch_counts[ttp.KERNEL]
+            dw_before = _dw_counts()
             logits, dec, loss = make_adamml_eval_step(model)(
                 EvalState(), [a.to(dev) for a in x], target.to(dev), 0)
             if dev == "cuda":
                 assert ttp.launch_counts[ttp.KERNEL] - before == 2
+                assert _dw_counts()[0] - dw_before[0] == (
+                    17 if use_pallas_dw else 0)
             out.append((logits.cpu(), dec.cpu(), float(loss)))
     finally:
         (torch.backends.cudnn.allow_tf32,
@@ -187,6 +319,46 @@ def test_tiny_eval_step_on_card_matches_cpu():
     assert abs(out[0][2] - out[1][2]) < 1e-3
 
 
+def test_tiny_eval_step_on_card_matches_cpu():
+    _tiny_eval_step(use_pallas_dw=False)
+
+
+def test_tiny_dw_eval_step_on_card_matches_cpu():
+    _tiny_eval_step(use_pallas_dw=True)
+
+
+def test_tiny_dw_forward_on_card_matches_cpu(monkeypatch):
+    """use_pallas_dw=True, float32, TF32 off: the policy net's logits (both
+    trunks) and the main net's under fixed decisions, on the card and on
+    the CPU from the same weights, within 1e-3; 51 depthwise launches."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = flagship_cfg(tiny=True)
+    cfg.model.use_pallas_dw = True
+    cpu, _ = build_model(cfg, device="cpu")
+    gpu, _ = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = example_inputs(cfg, batch=4, device="cpu", seed=3)
+    n, s = x[0].shape[:2]
+    dec = (torch.arange(2 * n * s) % 3 != 0).float().reshape(2, n * s)
+    outs = []
+    before = _dw_counts()
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        xs = [a.to(dev) for a in x]
+        with torch.no_grad():
+            _, p_logits = model.policy_net(
+                [policy_stream(xs[0], cfg.model.policy_input_size), xs[1]],
+                5.0)
+            m_logits = model.main_net(
+                [a.reshape((n * s,) + tuple(a.shape[2:])) for a in xs],
+                dec.to(dev), seq_groups=s)
+        outs.append((p_logits.cpu(), m_logits.cpu()))
+    assert _dw_counts()[0] - before[0] == 51
+    for got, want in zip(*outs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3)
+
+
 def _st_zero_noise(generator, logits, tau):
     """Zero-noise straight-through decision: no generator stream."""
     y = torch.softmax(logits / tau, dim=-1)
@@ -194,21 +366,22 @@ def _st_zero_noise(generator, logits, tau):
     return hard + y[..., 1] - y[..., 1].detach()
 
 
-@pytest.mark.parametrize("phase", ["main", "policy"])
-def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
+def _tiny_train_step(phase, use_pallas_dw, monkeypatch):
     """One float32 step of each phase from the same weights (8 clips at
     64x64, dropout 0, zero-noise decisions, TF32 off): losses within 1e-3
     relative; SGD updates each within 0.1 * lr of the CPU's, and 99% of the
     Adam updates within 0.1 * p_lr (Adam maps each gradient element to
     about +-p_lr, so elements within float32 noise of 0 may flip). The
-    main phase launches both kernels twice (F=4 pools twice), the policy
-    phase the forward only."""
+    main phase launches both epilogue kernels twice (F=4 pools twice), the
+    policy phase the forward only; with the depthwise flag the depthwise
+    kernel's launches are DW_STEP's."""
     _need_card()
     monkeypatch.setattr(tpolicy, "gumbel_decision", _st_zero_noise)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = flagship_cfg(tiny=True)
     cfg.model.dropout = 0.0
+    cfg.model.use_pallas_dw = use_pallas_dw
     cfg.data.input_size = 64
     lr, p_lr = 1e-3, 1e-2
     x = example_inputs(cfg, batch=8, device="cpu", seed=5)
@@ -229,6 +402,7 @@ def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
                                       penalty_type="blockdrop", gammas=10.0,
                                       clip_gradient=None)
         counts = dict(ttp.launch_counts)
+        dw_before = _dw_counts()
         m = step(state, [a.to(dev) for a in x], target.to(dev), lr, p_lr,
                  [1.0, 0.05], seed=0)
         if dev == "cuda":
@@ -236,6 +410,8 @@ def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
             assert ttp.launch_counts[ttp.KERNEL] - counts[ttp.KERNEL] == 2
             assert (ttp.launch_counts[ttp.KERNEL_BWD]
                     - counts[ttp.KERNEL_BWD]) == (2 if phase == "main" else 0)
+            dw = tuple(a - b for a, b in zip(_dw_counts(), dw_before))
+            assert dw == (DW_STEP[phase] if use_pallas_dw else (0, 0))
         out[dev] = (float(m["loss"]), {k: v.cpu() for k, v in
                                        model.state_dict().items()})
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * abs(out["cpu"][0])
@@ -253,3 +429,13 @@ def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
         close += int((~off).sum())
         total += off.numel()
     assert close / total >= 0.99
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
+    _tiny_train_step(phase, False, monkeypatch)
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_tiny_dw_train_step_on_card_matches_cpu(phase, monkeypatch):
+    _tiny_train_step(phase, True, monkeypatch)

@@ -21,7 +21,8 @@ from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import init_model
 from adamml_tpu_torch.models.joint_net import JointMainNet
 
-from torch_parity import flax_variables, t, zero_noise_jax, zero_noise_torch
+from torch_parity import (flax_variables, one_torch_thread, t,  # noqa: F401
+                          zero_noise_jax, zero_noise_torch)
 
 N, S = 3, 2
 TOL = 1e-4

@@ -18,7 +18,7 @@ from adamml_tpu.ops.pallas import tpool_fused as jtp
 from adamml_tpu_torch.ops.kernels import build
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
 
-from torch_parity import t
+from torch_parity import one_torch_thread, t  # noqa: F401
 
 
 def _args(rs, n, f, h, w, c, r, s, dtype=np.float32):

@@ -30,7 +30,7 @@ from adamml_tpu_torch.ops import temporal as ttemporal
 from adamml_tpu_torch.train import losses as tlosses
 from adamml_tpu_torch.train import steps as tsteps
 
-from torch_parity import t
+from torch_parity import one_torch_thread, t  # noqa: F401
 
 
 @pytest.mark.parametrize("tiny", [False, True])

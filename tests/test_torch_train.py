@@ -37,14 +37,15 @@ from adamml_tpu_torch.models import model_builder as tbuilder
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.norm import GroupedBatchNorm
 from adamml_tpu_torch.ops.augment import policy_stream
+from adamml_tpu_torch.ops.kernels import depthwise as tdw
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
 from adamml_tpu_torch.train import losses as tlosses
 from adamml_tpu_torch.train import optim as toptim
 from adamml_tpu_torch.train import steps as tsteps
 from adamml_tpu_torch.train.train_state import StageFlags, TrainState
 
-from torch_parity import (flax_variables, st_zero_noise_jax,
-                          st_zero_noise_torch, t)
+from torch_parity import (flax_variables, one_torch_thread,  # noqa: F401
+                          st_zero_noise_jax, st_zero_noise_torch, t)
 
 N = 4
 LR, P_LR = 1e-3, 1e-2          # bench.py:159-160
@@ -268,18 +269,25 @@ def _jax_grad_fn(jmodel, live_key, with_policy_loss):
     return jax.jit(fn)
 
 
-@pytest.fixture(scope="module")
-def train_run():
-    """Both frameworks take the same four steps from the same weights; after
-    each, the metrics, the port's tensors and gradients, the JAX state and
-    its gradient at the step's start (both in the port's layout), and the
-    number of plain-backward calls of the fused epilogue. 8 clips at 64x64:
-    at fewer samples per BN group the gradient is ill-conditioned (JAX's own
-    jitted and eager gradients disagree by more than the tolerances)."""
+def run_alternating(phases, use_pallas_dw=False, policy_input_size=None):
+    """Both frameworks take the same steps (``phases``, each "main" or
+    "policy") from the same weights, at the tiny config's policy-stream
+    size unless ``policy_input_size`` is given; after each, the metrics, the
+    port's
+    tensors and gradients, the JAX state and its gradient at the step's
+    start (both in the port's layout), the number of plain-backward calls of
+    the fused epilogue, and the depthwise op's calls by launch key (forward,
+    stride-1 input gradient). 8 clips at 64x64: at fewer samples per BN
+    group the gradient is ill-conditioned (JAX's own jitted and eager
+    gradients disagree by more than the tolerances)."""
     cfg = flagship_cfg(tiny=True)
     jcfg = graft._flagship_cfg(tiny=True)
     cfg.model.dropout = jcfg.model.dropout = 0.0
     cfg.data.input_size = jcfg.data.input_size = STEP_INPUT_SIZE
+    cfg.model.use_pallas_dw = jcfg.model.use_pallas_dw = use_pallas_dw
+    if policy_input_size is not None:
+        cfg.model.policy_input_size = policy_input_size
+        jcfg.model.policy_input_size = policy_input_size
     rs = np.random.RandomState(0)
     x = _inputs(cfg, rs, STEP_CLIPS)
     target = rs.randint(0, cfg.model.num_classes, STEP_CLIPS)
@@ -294,13 +302,16 @@ def train_run():
                             jax.tree_util.tree_map(np.asarray, stats))
         return ref
 
-    bwd_calls = []
+    bwd_calls, dw_calls = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpolicy, "gumbel_decision", st_zero_noise_torch)
         mp.setattr(jpolicy, "gumbel_decision", st_zero_noise_jax)
         real_bwd = ttp.reference_bwd
         mp.setattr(ttp, "reference_bwd",
                    lambda *a: bwd_calls.append(1) or real_bwd(*a))
+        real_dw = tdw._dw
+        mp.setattr(tdw, "_dw", lambda *a: dw_calls.append(
+            a[6] if len(a) > 6 else tdw.KERNEL) or real_dw(*a))
         _center_rgb_decisions(tmodel, x, v["params"])
 
         tx_main = joptim.build_optimizer("main", jcfg.optim)
@@ -334,7 +345,7 @@ def train_run():
         jx, jt = [jnp.asarray(a) for a in x], jnp.asarray(target)
         tx, tt = [t(a) for a in x], t(target)
         records = []
-        for i, phase in enumerate(PHASES):
+        for i, phase in enumerate(phases):
             if i:
                 _sync_state(tmodel, tstate, jstate, port_layout)
             start = _torch_tensors(tmodel)
@@ -346,8 +357,9 @@ def train_run():
             jstate, jm = jstep[phase](jstate, jx, jt, jnp.asarray(LR),
                                       jnp.asarray(P_LR), jnp.asarray(cw),
                                       jax.random.PRNGKey(0))
-            before = len(bwd_calls)
+            before, dw_before = len(bwd_calls), len(dw_calls)
             tm = tstep[phase](tstate, tx, tt, LR, P_LR, cw, seed=0)
+            dw_step = dw_calls[dw_before:]
             records.append({
                 "phase": phase, "start": start,
                 "jax_metrics": {k: np.asarray(m) for k, m in jm.items()},
@@ -358,9 +370,15 @@ def train_run():
                 "torch_grads": grads.pop("grads"),
                 "jax_grads": dict(port_layout(
                     jg_full, jstate.batch_stats).named_parameters()),
-                "bwd_calls": len(bwd_calls) - before})
-    assert tstate.step == len(PHASES)
+                "bwd_calls": len(bwd_calls) - before,
+                "dw_calls": {k: dw_step.count(k) for k in tdw.launch_counts}})
+    assert tstate.step == len(phases)
     return records
+
+
+@pytest.fixture(scope="module")
+def train_run():
+    return run_alternating(PHASES)
 
 
 def _sync_state(tmodel, tstate, jstate, port_layout):
@@ -402,12 +420,10 @@ def _live(phase):
     return f"{phase}_net."
 
 
-@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
-def test_train_step_metrics(train_run, i):
+def check_metrics(rec, first_step):
     """Decisions are exact (the selection and top-1/top-5 equal); losses
     within 1e-4 relative (float32 reductions in another order, after the
     earlier steps' updates)."""
-    rec = train_run[i]
     want, got = rec["jax_metrics"], rec["torch_metrics"]
     assert set(got) == set(want)
     for k in ("selection", "top1", "top5"):
@@ -415,18 +431,16 @@ def test_train_step_metrics(train_run, i):
     for k in ("loss", "cls_loss", "policy_loss"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
                                    err_msg=k)
-    if i == 0:  # mixed decisions: both backbones reach the loss
+    if first_step:  # mixed decisions: both backbones reach the loss
         assert 0.0 < float(got["selection"][0]) < 1.0
 
 
-@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
-def test_train_step_gradients(train_run, i):
+def check_gradients(rec):
     """The live subnet's gradient against JAX's at the step's start: within
     3% in norm over the whole subnet. The tiny model's gradient is not
     better conditioned than that: JAX's own jitted and eager gradients
     disagree at the percent level, and activations that float32 reordering
     moves across a ReLU's 0 switch single elements."""
-    rec = train_run[i]
     live = _live(rec["phase"])
     got, want = rec["torch_grads"], rec["jax_grads"]
     names = [n for n in want if n.startswith(live)]
@@ -438,16 +452,13 @@ def test_train_step_gradients(train_run, i):
     assert num <= 0.03 ** 2 * den
 
 
-@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
-def test_train_step_parameters(train_run, i):
+def check_parameters(rec):
     """Every live parameter's update from the shared start. SGD's update is
     linear in the gradient (and the momentum): each element within 0.1 * lr
     of JAX's. Adam's normalizes each element by its own size, so a gradient
     element within float32 noise of -wd * p steps by about +-p_lr on either
     side: 99% of the policy elements within 0.1 * p_lr (Adam itself matches
-    optax exactly, test_optimizers_and_clip_match). The frozen subnet does
-    not move (test_train_step_freezes_and_runs_fused_backward)."""
-    rec = train_run[i]
+    optax exactly, test_optimizers_and_clip_match)."""
     live = _live(rec["phase"])
     lr = LR if rec["phase"] == "main" else P_LR
     close = total = 0
@@ -462,12 +473,10 @@ def test_train_step_parameters(train_run, i):
     assert close / total >= 0.99
 
 
-@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
-def test_train_step_bn_statistics(train_run, i):
+def check_bn_statistics(rec):
     """Every BN running statistic, of the live and the frozen subnet: within
     2e-4 (float32 moments of activations that 18 float32 layers summed in
     another order move apart by about 1e-5 relative)."""
-    rec = train_run[i]
     buffers = [k for k in rec["torch"] if k.endswith(("running_mean",
                                                        "running_var"))]
     assert len(buffers) > 100
@@ -477,13 +486,11 @@ def test_train_step_bn_statistics(train_run, i):
                                    atol=2e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
-def test_train_step_freezes_and_runs_fused_backward(train_run, i):
+def check_freezes(rec):
     """The frozen subnet's parameters are bit-unchanged and the live one's
     move; BN statistics of both move. The fused epilogue's backward runs at
     each pooled stage boundary (two at F=4) in the main phase only: in the
     policy phase no gradient reaches the main net."""
-    rec = train_run[i]
     prev = rec["start"]
     live = _live(rec["phase"])
     moved = {"live": 0, "frozen": 0, "stats": 0}
@@ -495,6 +502,35 @@ def test_train_step_freezes_and_runs_fused_backward(train_run, i):
             moved["stats"] += not torch.equal(prev[name], rec["torch"][name])
     assert moved["frozen"] == 0 and moved["live"] > 50 and moved["stats"] > 50
     assert rec["bwd_calls"] == (2 if rec["phase"] == "main" else 0)
+
+
+@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
+def test_train_step_metrics(train_run, i):
+    check_metrics(train_run[i], i == 0)
+
+
+@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
+def test_train_step_gradients(train_run, i):
+    check_gradients(train_run[i])
+
+
+@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
+def test_train_step_parameters(train_run, i):
+    """The frozen subnet does not move
+    (test_train_step_freezes_and_runs_fused_backward)."""
+    check_parameters(train_run[i])
+
+
+@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
+def test_train_step_bn_statistics(train_run, i):
+    check_bn_statistics(train_run[i])
+
+
+@pytest.mark.parametrize("i", range(len(PHASES)), ids=STEP_IDS)
+def test_train_step_freezes_and_runs_fused_backward(train_run, i):
+    """With use_pallas_dw off the depthwise op is never called."""
+    check_freezes(train_run[i])
+    assert set(train_run[i]["dw_calls"].values()) == {0}
 
 
 def test_policy_remat_lands_statistics_once():

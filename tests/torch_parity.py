@@ -14,7 +14,20 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Import into a test module to run its torch work on one thread: the
+    parity tests' tensors are small, and the tier-1 run's workers share the
+    machine's cores, where each worker's own thread pool would only contend
+    with the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flax_variables(module, rs: np.random.RandomState, *args, **kwargs):
