@@ -7,13 +7,16 @@ counterpart of tools/bench_depthwise.py.
 
 At that tool's four shapes (B, H, W, C) = (80, 80, 80, 96),
 (80, 40, 40, 144), (80, 20, 20, 384) and (80, 10, 10, 960), in bf16 at
-stride 1 with ReLU6 and the identity affine, it times the kernel and the
-cuDNN composition (``F.conv2d(..., padding=1, groups=C)`` on the
-channels_last view, then the clip) with CUDA events, the L2 flushed between
-runs, and prints one JSON line per shape: ms, GB/s (x read once, out written
-once, the bf16 taps, as that tool counts them), cuDNN's time over the
-kernel's, and the largest difference between the two results. Needs a CUDA
-card; it raises without one.
+stride 1 with ReLU6 and the identity affine given as float32 ones and
+zeros, it times one ``depthwise_conv3x3`` call and the cuDNN composition
+(``F.conv2d(..., padding=1, groups=C)`` on the channels_last view, then the
+clip: two kernels) with CUDA events around each call, the L2 flushed between
+runs. The call's time is one kernel's: the wrapper launches nothing else
+(its float32 scale and bias and its bf16 taps are read as they are). It
+prints one JSON line per shape: ms, GB/s (x read once, out written once,
+the bf16 taps, as that tool counts them), cuDNN's time over the kernel's,
+and the largest difference between the two results. Needs a CUDA card; it
+raises without one.
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ Phases, each printing one JSON line (or several):
   build       nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once) and prints ptxas' registers, shared
               memory, spills;
+  one_kernel_a_call  torch.profiler's count of kernels in one depthwise
+              forward call and one stride-1 input-gradient call (one
+              each), before any other profiled run;
   kernel      the fused epilogue's forward kernel against its plain PyTorch
               version, at the flagship eval shapes and at grouped, float32
               and odd-F cases, with CUDA-event times beside the bound;
@@ -33,16 +36,23 @@ Phases, each printing one JSON line (or several):
               depthwise layer of the three MobileNetV2s runs the depthwise
               kernel (51 launches a batch beside the epilogue's 3); then
               the same weights and batch with the depthwise op patched to
-              its plain version (0 kernel launches) for comparison;
+              its plain version (0 kernel launches) for comparison; and
+              the kernels one eval step puts on the card (torch.profiler)
+              with the flag, at most 5 more than without it;
   train_dw    both train phases with use_pallas_dw=True, with the
               depthwise kernel's forward and input-gradient launches of
               every step asserted (main 51 + 13, policy 85 + 26: the
               policy trunks' remat runs their forward again);
   kernel_dw   the depthwise kernel against its plain version at every
-              distinct layer of serve_dw (bf16, timed, with cuDNN's
-              depthwise convolution as the library yardstick), and at
-              float32, odd sizes, asymmetric stride-2 padding, an affine
-              with ReLU6, C % 8 != 0 and the flipped-tap input gradient;
+              distinct layer of serve_dw (bf16, taps as the model passes
+              them), timed as the kernel alone (kernel_ms: the C entry with
+              its arguments bound outside the timed span) and as the whole
+              call (call_ms), beside the bound, the plain version and
+              cuDNN's depthwise convolution (library_ms), per layer and
+              summed by stride; then float32, odd sizes, asymmetric
+              stride-2 padding, an affine with ReLU6, C % 8 != 0, sizes
+              that cross the tiles' edges, the flipped-tap input gradient
+              and a determinism check;
   tiny_reference, tiny_train  the tiny float32 config on the card against
               the CPU (eval forward; one step of each phase), then the same
               with use_pallas_dw=True (tiny_dw_reference, tiny_dw_train);
@@ -62,7 +72,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -97,6 +109,8 @@ COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts)
 # phase adds the audio backbone's 13 stride-1 input gradients; the policy
 # phase adds the two trunks' forward again (remat) and their 26
 DW_STEP = {"eval": (51, 0), "main": (51, 13), "policy": (85, 26)}
+# marker kernels before and after a profiled call (_device_kernels)
+MARKERS = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -400,8 +414,11 @@ def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
             latencies.append(dt)
     launches = all_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    # the kernels one eval step puts on the card (after the counted run)
+    step_kernels = len(_device_kernels(
+        lambda: step(state, batches[1][0], batches[1][1], seed=9)))
     emit(label, arch=name, card=card, batch_clips=batch,
-         requests=len(latencies), warmup=1,
+         requests=len(latencies), warmup=1, kernels_per_step=step_kernels,
          latency_ms=[x * 1e3 for x in latencies],
          clips_per_s=[batch / x for x in latencies],
          max_memory_allocated_bytes=peak, launches=launches,
@@ -412,8 +429,10 @@ def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
     # the same batch and weights through the plain route
     if use_pallas_dw:
         real = dwk._launch
-        dwk._launch = lambda x, w, sc, b, stride, relu6, key=dwk.KERNEL: \
-            dwk.reference_impl(x, w, sc, b, stride, relu6)
+        dwk._launch = (lambda x, w, sc, b, stride, relu6, key=dwk.KERNEL,
+                       flip=False: dwk.reference_impl(
+                           x, w.flip(0, 1) if flip else w, sc, b, stride,
+                           relu6))
         plain, route = model, "depthwise op patched to reference_impl"
     else:
         cfg_plain = flagship_cfg()
@@ -452,7 +471,8 @@ def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
          max_abs_diff=diff, tolerance=tol, decisions_equal=True)
     del plain, model, step, batches
     torch.cuda.empty_cache()
-    return {"launches": launches, "dw_layers": Counter(layers)}
+    return {"launches": launches, "dw_layers": Counter(layers),
+            "kernels_per_step": step_kernels}
 
 
 def _train_state(model, cfg) -> TrainState:
@@ -751,20 +771,26 @@ def tiny_reference_phase(dev, use_pallas_dw: bool = False) -> None:
          main_logits_err=errs[1], tolerance=1e-3)
 
 
-def dw_work(x_shape, stride, itemsize):
-    """(bytes, float32 ops) of one depthwise call: x read once, out written
-    once, the taps (x's dtype) and the float32 scale and bias read once;
-    18 operations (9 multiplies, 9 adds) per output element."""
+def dw_work(x_shape, stride, itemsize, tap_itemsize, affine=False):
+    """(bytes, float32 ops) of one depthwise call as the kernel reads it: x
+    read once, out written once, the taps once in their own dtype, and the
+    float32 scale and bias only when an affine is given; 18 operations (9
+    multiplies, 9 adds) per output element."""
     b, h, w, c = x_shape
     oh, ow = dwk.same_pads(h, stride)[0], dwk.same_pads(w, stride)[0]
-    nbytes = (b * h * w * c + b * oh * ow * c + 9 * c) * itemsize + 8 * c
+    nbytes = ((b * h * w * c + b * oh * ow * c) * itemsize
+              + 9 * c * tap_itemsize + (8 * c if affine else 0))
     return nbytes, 18 * b * oh * ow * c
 
 
 def _dw_inputs(shape, dtype, gen, dev, affine=False):
+    """x, the taps as _DepthwiseConv passes them (a (3, 3, C) view of a
+    (C, 1, 3, 3) weight in x's dtype) and, with ``affine``, scale and
+    bias."""
     b, h, w, c = shape
     x = (2.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
-    taps = (0.3 * torch.randn((3, 3, c), generator=gen, device=dev)).to(dtype)
+    weight = 0.3 * torch.randn((c, 1, 3, 3), generator=gen, device=dev)
+    taps = weight.to(dtype)[:, 0].permute(1, 2, 0)
     if not affine:
         return x, taps, None, None
     return (x, taps, 1.0 + 0.3 * torch.randn(c, generator=gen, device=dev),
@@ -800,9 +826,48 @@ def _cudnn_dw(x, taps, stride):
                             groups=c)
 
 
+def _device_kernels(fn) -> list:
+    """Names of the kernels ``fn`` puts on the card: the "kernel" events of
+    a torch.profiler trace (CPU and CUDA activities), counted as
+    adamml_tpu_torch/tools/profile_eval_step.py counts them. A later
+    session in a process can miss its first kernels (and a trace its
+    last), so runs of marker kernels (torch.cuda._sleep's spin_kernel)
+    come before and after ``fn``; the trace must begin and end with a
+    marker, and ``fn``'s kernels are the others."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(10_000_000)
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in sorted(
+        (e for e in events if e.get("ph") == "X" and e.get("cat") ==
+         "kernel"), key=lambda e: float(e["ts"]))]
+    marks = ["spin_kernel" in n for n in names]
+    check(bool(marks) and marks[0] and marks[-1],
+          f"the profiler trace lost the markers around the profiled call "
+          f"({len(names)} kernels)")
+    return [n for n, m in zip(names, marks) if not m]
+
+
 # (label, (B, H, W, C), stride, dtype, affine with ReLU6): float32, odd
-# sizes, stride 2 on an even size (pads (0, 1)), the affine with ReLU6 and
-# C % 8 != 0 (the scalar path)
+# sizes, stride 2 on an even size (pads (0, 1)), the affine with ReLU6,
+# C % 8 != 0 (4 channels a thread, and an element copy at C = 12 in bf16),
+# and sizes that cross the tiles' edges: one row, one column, one image,
+# H and W no multiple of a tile, C = 8 and 960
 DW_EXTRA_CASES = [
     ("f32_9x11_s1", (4, 9, 11, 32), 1, torch.float32, False),
     ("f32_9x11_s2", (4, 9, 11, 32), 2, torch.float32, False),
@@ -812,76 +877,111 @@ DW_EXTRA_CASES = [
     ("bf16_affine_relu6_s2", (8, 20, 20, 96), 2, torch.bfloat16, True),
     ("bf16_C12_s1", (4, 7, 9, 12), 1, torch.bfloat16, True),
     ("f32_C12_s2", (4, 7, 9, 12), 2, torch.float32, True),
+    ("bf16_H1_C8_s1", (3, 1, 37, 8), 1, torch.bfloat16, False),
+    ("bf16_W1_C24_s2", (3, 35, 1, 24), 2, torch.bfloat16, True),
+    ("f32_B1_1x1_C960_s1", (1, 1, 1, 960), 1, torch.float32, False),
+    ("bf16_B1_19x19_C960_s2", (1, 19, 19, 960), 2, torch.bfloat16, False),
+    ("bf16_33x70_C24_s1", (2, 33, 70, 24), 1, torch.bfloat16, True),
+    ("f32_17x130_C8_s2", (2, 17, 130, 8), 2, torch.float32, False),
 ]
+
+
+def _dw_sum_line(r: dict) -> dict:
+    """A sum over layers; the share net of the timing floor counts each
+    layer's kernel time less the time an empty kernel takes."""
+    return dict(kernel_ms=r["ms"], call_ms=r["call_ms"],
+                bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"],
+                share_of_bound=r["bound_ms"] / r["ms"],
+                library_over_kernel=r["library_ms"] / r["ms"],
+                layers=r["layers"], timing_floor_ms=r["floor_ms"],
+                share_of_bound_net_of_floor=r["bound_ms"] / max(
+                    r["ms"] - r["layers"] * r["floor_ms"], 1e-9))
 
 
 def kernel_dw_phase(dev, layers: Counter) -> dict:
     """The depthwise kernel against reference_impl at every distinct
     (input shape, stride) of one serve_dw batch (bf16, identity affine, no
-    clip, as _DepthwiseConv calls it), timed beside the plain version and
-    cuDNN; then the extra cases and the flipped-tap input gradient. The
-    kernel rounds once where its plain version does, with no FMA
-    contraction: bit-equal is expected, 1 bf16 ulp (float32: 1e-6
-    relative) is the tolerance. Sums weight each layer by its count in one
-    eval step."""
+    clip, taps as _DepthwiseConv passes them), timed as the kernel alone
+    (the C entry with its arguments bound outside the timed span), as the
+    whole ``depthwise_conv3x3`` call, as the plain version and as cuDNN;
+    then the extra cases, the flipped-tap input gradient, a determinism
+    check, and the profiler's count of kernels in one forward and one
+    stride-1 input-gradient call. The kernel rounds once where its plain
+    version does, with no FMA contraction: bit-equal is expected, 1 bf16
+    ulp (float32: 1e-6 relative) is the tolerance. Sums weight each layer
+    by its count in one eval step, over all layers and by stride."""
     gen = torch.Generator(device=dev).manual_seed(20)
     flush = l2_flush_buffer(dev)
-    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "library_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0, "layers": 0}
+    # the timing floor: an empty kernel timed as the kernels are
+    floor = event_ms(lambda: torch.cuda._sleep(0), flush=flush)
+    emit("kernel_dw", case="timing_floor", ms=floor,
+         what="torch.cuda._sleep(0), timed as the kernels are")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+            "bytes_s", "ops_s", "layers")
+    res = {"max_abs_err": 0.0, **{k: 0.0 for k in keys},
+           "s1": {k: 0.0 for k in keys}, "s2": {k: 0.0 for k in keys}}
+    for r in (res, res["s1"], res["s2"]):
+        r["floor_ms"] = floor
     for (shape, stride), count in sorted(layers.items()):
         x, taps, _, _ = _dw_inputs(shape, torch.bfloat16, gen, dev)
         with torch.no_grad():
             got = dwk.depthwise_conv3x3(x, taps, stride=stride)
-            ones = torch.ones(shape[-1], device=dev)
-            zeros = torch.zeros(shape[-1], device=dev)
-            want = dwk.reference_impl(x, taps, ones, zeros, stride, False)
+            want = dwk.reference_impl(x, taps, None, None, stride, False)
             lib = _cudnn_dw(x, taps, stride)
             lib_err = float((lib().permute(0, 2, 3, 1).float()
                              - want.float()).abs().max())
             torch.cuda.synchronize()
             err = _dw_check(f"{shape} s{stride}", got, want, torch.bfloat16)
-            nbytes, ops = dw_work(shape, stride, 2)
+            nbytes, ops = dw_work(shape, stride, 2, taps.element_size())
             bound, bound_by = bound_ms(nbytes, ops)
-            k_ms = event_ms(lambda: dwk.depthwise_conv3x3(x, taps,
+            launch, _ = dwk.bind(x, taps, None, None, stride, False)
+            k_ms = event_ms(launch, flush=flush)
+            c_ms = event_ms(lambda: dwk.depthwise_conv3x3(x, taps,
                                                           stride=stride),
                             flush=flush)
             p_ms = event_ms(lambda: dwk.reference_impl(
-                x, taps, ones, zeros, stride, False), iters=5, warmup=1,
+                x, taps, None, None, stride, False), iters=5, warmup=1,
                 flush=flush)
             l_ms = event_ms(lib, flush=flush)
             host_ms = host_call_ms(lambda: dwk.depthwise_conv3x3(
                 x, taps, stride=stride))
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                       ("library_ms", l_ms),
+        for key, v in (("ms", k_ms), ("call_ms", c_ms), ("plain_ms", p_ms),
+                       ("bound_ms", bound), ("library_ms", l_ms),
                        ("bytes_s", nbytes / HBM_BYTES_PER_S),
                        ("ops_s", ops / F32_OPS_PER_S), ("layers", 1)):
             res[key] += count * v
+            res[f"s{stride}"][key] += count * v
+        plan = dwk.tile_plan(*shape, stride, 2)
         emit("kernel_dw", case="flagship", shape=list(shape), stride=stride,
              dtype="bfloat16", calls_per_eval_step=count, max_abs_err=err,
-             tolerance="1 bf16 ulp", kernel_ms=k_ms, plain_ms=p_ms,
-             bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
-             achieved_GBps=nbytes / k_ms / 1e6, share_of_bound=bound / k_ms,
-             library_ms=l_ms,
+             tolerance="1 bf16 ulp", kernel_ms=k_ms, call_ms=c_ms,
+             plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+             ops=ops, achieved_GBps=nbytes / k_ms / 1e6,
+             share_of_bound=bound / k_ms, library_ms=l_ms,
              library="F.conv2d(groups=C) on the channels_last view" + (
                  "" if stride == 1 else ", after F.pad (two calls)"),
              library_vs_plain_max_abs_diff=lib_err, wrapper_host_ms=host_ms,
-             timing="CUDA events, kernel and library mean of 20 after 3 "
-                    "warm-up, plain mean of 5 after 1, L2 flushed between "
-                    "launches")
-        del x, got, want, lib
+             tile=dict(th=plan.th, tw=plan.tw, cb=plan.cb, vec=plan.vec,
+                       threads=plan.threads, smem_bytes=plan.smem_bytes,
+                       tiles=plan.tiles),
+             timing="CUDA events, kernel, call and library mean of 20 "
+                    "after 3 warm-up, plain mean of 5 after 1, L2 flushed "
+                    "between launches")
+        del x, got, want, lib, launch
     check(res["layers"] == DW_STEP["eval"][0],
           f"{res['layers']} depthwise layers in one eval step, expected "
           f"{DW_STEP['eval'][0]}")
+    for case, r in (("sum_stride1", res["s1"]), ("sum_stride2", res["s2"]),
+                    ("sum_all", res)):
+        emit("kernel_dw", case=case, **_dw_sum_line(r))
 
     for label, shape, stride, dtype, affine in DW_EXTRA_CASES:
         x, taps, scale, bias = _dw_inputs(shape, dtype, gen, dev, affine)
         got = dwk.depthwise_conv3x3(x, taps, stride=stride, scale=scale,
                                     bias=bias, relu6=affine)
-        c = shape[-1]
-        want = dwk.reference_impl(
-            x, taps, scale if affine else torch.ones(c, device=dev),
-            bias if affine else torch.zeros(c, device=dev), stride, affine)
+        want = dwk.reference_impl(x, taps, scale, bias, stride, affine)
         torch.cuda.synchronize()
         err = _dw_check(label, got, want, dtype)
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -891,32 +991,77 @@ def kernel_dw_phase(dev, layers: Counter) -> dict:
              torch.bfloat16 else "1e-6 relative")
 
     # the stride-1 input gradient at the largest stride-1 flagship layer:
-    # autograd launches the kernel on the masked cotangent with flipped
-    # taps; the same call through the plain version must agree
+    # autograd launches the kernel with flipped taps, on the masked and
+    # scaled cotangent (affine, ReLU6) and on the cotangent as it comes (as
+    # the model calls it); the same calls through the plain version must
+    # agree
     shape = max((s for s, st in layers if st == 1), key=math.prod)
-    x, taps, scale, bias = _dw_inputs(shape, torch.bfloat16, gen, dev, True)
-    x.requires_grad_(True)
-    out = dwk.depthwise_conv3x3(x, taps, stride=1, scale=scale, bias=bias,
-                                relu6=True)
-    ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
-    before = dict(dwk.launch_counts)
-    out.backward(ct)
-    torch.cuda.synchronize()
-    check(dwk.launch_counts[dwk.KERNEL_DX] == before[dwk.KERNEL_DX] + 1,
-          "the stride-1 input gradient did not launch the kernel")
+    for affine in (True, False):
+        x, taps, scale, bias = _dw_inputs(shape, torch.bfloat16, gen, dev,
+                                          affine)
+        x.requires_grad_(True)
+        out = dwk.depthwise_conv3x3(x, taps, stride=1, scale=scale,
+                                    bias=bias, relu6=affine)
+        ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        before = dict(dwk.launch_counts)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        check(dwk.launch_counts[dwk.KERNEL_DX] == before[dwk.KERNEL_DX] + 1,
+              "the stride-1 input gradient did not launch the kernel")
+        with torch.no_grad():
+            gc = ct
+            if affine:
+                outf = out.float()
+                gc = (ct.float() * ((outf > 0) & (outf < 6)).float()
+                      * scale).to(x.dtype)
+            want = dwk.reference_impl(gc, taps.flip(0, 1), None, None, 1,
+                                      False)
+        label = "flipped_tap_dx" + ("_affine_relu6" if affine else "")
+        err = _dw_check(label, x.grad, want, torch.bfloat16)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        emit("kernel_dw", case=label, shape=list(shape), stride=1,
+             dtype="bfloat16", max_abs_err=err, tolerance="1 bf16 ulp")
+        del out, gc, want
+
+    # determinism: two calls, the same bytes
+    x, taps, _, _ = _dw_inputs(shape, torch.bfloat16, gen, dev)
     with torch.no_grad():
-        outf = out.float()
-        gc = (ct.float() * ((outf > 0) & (outf < 6)).float() * scale).to(
-            x.dtype)
-        want = dwk.reference_impl(gc, taps.flip(0, 1), torch.ones_like(scale),
-                                  torch.zeros_like(bias), 1, False)
-    err = _dw_check("flipped-tap dx", x.grad, want, torch.bfloat16)
-    res["max_abs_err"] = max(res["max_abs_err"], err)
-    emit("kernel_dw", case="flipped_tap_dx", shape=list(shape), stride=1,
-         dtype="bfloat16", max_abs_err=err, tolerance="1 bf16 ulp")
-    del x, out, ct, gc, want
+        first = dwk.depthwise_conv3x3(x, taps)
+        second = dwk.depthwise_conv3x3(x, taps)
+    check(torch.equal(first.view(torch.int16), second.view(torch.int16)),
+          "two calls on the same inputs differ in their bytes")
+    emit("kernel_dw", case="deterministic", shape=list(shape),
+         identical_bytes=True)
+    del x, first, second
     torch.cuda.empty_cache()
     return res
+
+
+def one_kernel_phase(dev) -> None:
+    """One depthwise forward call as _DepthwiseConv makes it, and one
+    stride-1 input-gradient call on a contiguous cotangent (the taps need
+    no gradient, so no cuDNN filter gradient runs), each put exactly one
+    kernel on the card (torch.profiler). Run before any other profiler
+    session of the process."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x, taps, _, _ = _dw_inputs((40, 128, 128, 32), torch.bfloat16, gen, dev)
+    with torch.no_grad():
+        dwk.depthwise_conv3x3(x, taps)
+    fwd = _device_kernels(lambda: dwk.depthwise_conv3x3(x, taps))
+    xg = x.detach().requires_grad_(True)
+    out = dwk.depthwise_conv3x3(xg, taps)
+    ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+    torch.autograd.grad(out, xg, ct, retain_graph=True)
+    dx = _device_kernels(lambda: torch.autograd.grad(out, xg, ct,
+                                                     retain_graph=True))
+    check(len(fwd) == 1 and len(dx) == 1 and "dw3x3" in fwd[0]
+          and "dw3x3" in dx[0],
+          f"one depthwise call put {fwd} (forward) and {dx} (input "
+          "gradient) on the card, expected one kernel each")
+    emit("one_kernel_a_call", shape=list(x.shape), forward_kernels=fwd,
+         input_gradient_kernels=dx)
+    del x, xg, out, ct
+    torch.cuda.empty_cache()
 
 
 # (N, F, H, W, C, dtype): the prototype against its plain version, beside
@@ -1006,12 +1151,21 @@ def main() -> int:
                  if "Used" in ln or "spill" in ln] for k in kernels}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
+    one_kernel_phase(dev)
     kres = kernel_phase(dev)
     bres = kernel_bwd_phase(dev)
     sres = serve_phase(dev, smi)
     tres = train_phase(dev, smi)
     train_vs_plain_phase(dev)
     sdw = serve_phase(dev, smi, use_pallas_dw=True)
+    # with the flag each depthwise layer puts one kernel on the card, where
+    # cuDNN's depthwise convolution puts one or more
+    extra = sdw["kernels_per_step"] - sres["kernels_per_step"]
+    check(extra <= 5, f"an eval step with use_pallas_dw=True puts "
+          f"{sdw['kernels_per_step']} kernels on the card, the default "
+          f"path {sres['kernels_per_step']}: more than 5 more")
+    emit("serve_dw_kernels", default=sres["kernels_per_step"],
+         use_pallas_dw=sdw["kernels_per_step"], difference=extra)
     tdw = train_phase(dev, smi, use_pallas_dw=True)
     dres = kernel_dw_phase(dev, sdw["dw_layers"])
     tiny_reference_phase(dev)
@@ -1067,9 +1221,12 @@ def main() -> int:
         "replaces": "adamml_tpu/ops/pallas/depthwise.py:78",
         "launches": sdw["launches"][dwk.KERNEL],
         "max_abs_err": dres["max_abs_err"],
-        "ms": dres["ms"], "plain_ms": dres["plain_ms"],
+        "ms": dres["ms"], "call_ms": dres["call_ms"],
+        "plain_ms": dres["plain_ms"],
         "bound_ms": dres["bound_ms"], "bound_by": bound_by(dres),
         "library_ms": dres["library_ms"],
+        "stride1": _dw_sum_line(dres["s1"]),
+        "stride2": _dw_sum_line(dres["s2"]),
         "launches_by_path": {
             "serve_dw": sdw["launches"][dwk.KERNEL],
             "train_dw_main": {"forward": tdw["main"][dwk.KERNEL],
@@ -1078,9 +1235,10 @@ def main() -> int:
                 "forward": tdw["policy"][dwk.KERNEL],
                 "input_gradient": tdw["policy"][dwk.KERNEL_DX]},
             "tools": ores["launches"][dwk.KERNEL]},
-        "note": "ms, plain_ms, bound_ms and library_ms are sums over the "
-                "51 depthwise layers of one 8-clip eval step with "
-                "use_pallas_dw=True (library: cuDNN's depthwise "
+        "note": "ms (the kernel alone), call_ms (depthwise_conv3x3 as "
+                "the model calls it), plain_ms, bound_ms and library_ms "
+                "are sums over the 51 depthwise layers of one 8-clip eval "
+                "step with use_pallas_dw=True (library: cuDNN's depthwise "
                 "convolution, F.pad first at stride 2); launches are the "
                 "serve_dw path's (5 batches)"}, {
         "name": tpp.KERNEL, "route": "cuda",

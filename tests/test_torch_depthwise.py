@@ -94,22 +94,39 @@ def test_same_pads_match_jax():
 DW_SIZES = [(8, 8), (9, 11), (6, 6)]
 
 
-@pytest.mark.parametrize("affine", [False, True], ids=["identity", "affine"])
+# (affine, taps): the identity as ones and zeros, an affine, the identity
+# as no scale and no bias (the kernel's null pointers; JAX gets ones and
+# zeros), and bf16 taps
+DW_MODES = [(False, "f32"), (True, "f32"), (None, "f32"), (None, "bf16"),
+            (True, "bf16")]
+
+
+@pytest.mark.parametrize("affine", DW_MODES,
+                         ids=["identity", "affine", "none", "none_taps_bf16",
+                              "affine_taps_bf16"])
 @pytest.mark.parametrize("relu6", [False, True], ids=["linear", "relu6"])
 @pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
 @pytest.mark.parametrize("hw", DW_SIZES, ids=[f"{h}x{w}" for h, w in DW_SIZES])
 def test_reference_impl_matches_pallas(hw, stride, relu6, affine,
                                        interpret_dw):
     """(a) within 1e-5: float32 sums of nine products, which XLA may
-    contract into multiply-adds."""
+    contract into multiply-adds. bf16 taps reach both versions as bf16."""
+    affine, taps = affine
     h, w_ = hw
     rs = np.random.RandomState(h * 10 + w_ + stride)
-    x, w, scale, bias = _dw_args(rs, (2, h, w_, 16), affine)
-    got = tdw.reference_impl(t(x), t(w), t(scale), t(bias), stride,
-                             relu6).numpy()
+    x, w, scale, bias = _dw_args(rs, (2, h, w_, 16), bool(affine))
+    tw = t(w) if taps == "f32" else t(w).to(torch.bfloat16)
+    got = tdw.reference_impl(
+        t(x), tw, None if affine is None else t(scale),
+        None if affine is None else t(bias), stride, relu6).numpy()
     assert got.shape == (2, -(-h // stride), -(-w_ // stride), 16)
-    jargs = [jnp.asarray(v) for v in (x, w, scale, bias)]
+    jw = jnp.asarray(w) if taps == "f32" else jnp.asarray(w).astype(
+        jnp.bfloat16)
     for name, fn in (("_pallas_dw", jdw._pallas_dw), ("_xla_dw", jdw._xla_dw)):
+        # XLA's convolution takes one dtype: the bf16 taps exactly in f32
+        jargs = [jnp.asarray(x), jw if name == "_pallas_dw" else
+                 jw.astype(jnp.float32), jnp.asarray(scale),
+                 jnp.asarray(bias)]
         want = np.asarray(fn(*jargs, stride, relu6))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
                                    err_msg=name)
@@ -124,15 +141,39 @@ def _loss_jax(out):
     return jnp.sum(out * jnp.cos(out.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("affine", [False, True], ids=["identity", "affine"])
+# (affine, JAX route, dtype): JAX's own CPU route (XLA), then its Pallas
+# kernel in interpret mode with the TPU gate opened, where the stride-1
+# input gradient is the kernel with flipped taps, in float32 and in bf16
+# (x and taps)
+VJP_CASES = [(False, "xla", "float32"), (True, "xla", "float32"),
+             (False, "pallas", "float32"), (True, "pallas", "float32"),
+             (False, "pallas", "bfloat16")]
+
+
+@pytest.mark.parametrize("affine", VJP_CASES,
+                         ids=["identity", "affine", "identity_pallas",
+                              "affine_pallas", "identity_pallas_bf16"])
 @pytest.mark.parametrize("relu6", [False, True], ids=["linear", "relu6"])
 @pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
-def test_depthwise_conv3x3_grads_match_jax(stride, relu6, affine):
-    """(b) forward within 1e-5; each gradient within 1e-4 of its largest
-    entry (float32 convolutions of the cotangent summed in another order).
-    7x10 is odd in H and even in W, so stride 2 pads (1, 1) and (0, 1)."""
+def test_depthwise_conv3x3_grads_match_jax(stride, relu6, affine, request,
+                                           monkeypatch):
+    """(b) float32: forward within 1e-5; each gradient within 1e-4 of its
+    largest entry (float32 convolutions of the cotangent summed in another
+    order). bf16: the forward within one bf16 ulp (XLA may contract a
+    multiply-add, which can move a rounding by one ulp) and each gradient
+    within 2^-7 of its largest entry (one bf16 rounding of float32 sums
+    taken in another order). 7x10 is odd in H and even in W, so stride 2
+    pads (1, 1) and (0, 1)."""
+    affine, route, dtype = affine
+    if route == "pallas":
+        request.getfixturevalue("interpret_dw")
+        monkeypatch.setattr(jdw, "pallas_depthwise_available",
+                            lambda shape=None: True)
     rs = np.random.RandomState(stride * 4 + relu6 * 2 + affine)
     x, w, scale, bias = _dw_args(rs, (2, 7, 10, 8))
+    if dtype == "bfloat16":  # values exact in bf16 on both sides
+        x, w = (np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(
+            jnp.float32)) for v in (x, w))
     n_args = 4 if affine else 2
 
     def jfwd(*a):
@@ -141,24 +182,32 @@ def test_depthwise_conv3x3_grads_match_jax(stride, relu6, affine):
                                      **kw)
 
     jargs = [jnp.asarray(v) for v in (x, w, scale, bias)][:n_args]
-    want = np.asarray(jfwd(*jargs))
+    jargs[:2] = [a.astype(getattr(jnp, dtype)) for a in jargs[:2]]
+    want = np.asarray(jfwd(*jargs).astype(jnp.float32))
     jgrads = jax.grad(lambda *a: _loss_jax(jfwd(*a)),
                       argnums=tuple(range(n_args)))(*jargs)
 
-    leaves = [t(v).requires_grad_(True) for v in (x, w, scale, bias)][:n_args]
+    leaves = [t(v) for v in (x, w, scale, bias)][:n_args]
+    leaves[:2] = [v.to(getattr(torch, dtype)) for v in leaves[:2]]
+    leaves = [v.requires_grad_(True) for v in leaves]
     kw = dict(scale=leaves[2], bias=leaves[3]) if affine else {}
     out = tdw.depthwise_conv3x3(leaves[0], leaves[1], stride=stride,
                                 relu6=relu6, **kw)
-    np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-5,
-                               atol=1e-5)
+    got = out.detach().float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.all(np.abs(got - want) <= 2.0 ** -8 * np.abs(want) + 1e-6)
     if relu6:  # both ends of the clip are reached
         assert (want == 0).any() and (want == 6).any()
     _loss_torch(out).backward()
+    rel = 1e-4 if dtype == "float32" else 2.0 ** -7
     for leaf, g, name in zip(leaves, jgrads, ("dx", "dw", "dscale", "dbias")):
-        g = np.asarray(g)
+        g = np.asarray(g.astype(jnp.float32))
         assert leaf.grad.shape == g.shape, name
-        np.testing.assert_allclose(leaf.grad.numpy(), g, rtol=0,
-                                   atol=1e-4 * np.abs(g).max(), err_msg=name)
+        assert leaf.grad.dtype == leaf.dtype, name
+        np.testing.assert_allclose(leaf.grad.float().numpy(), g, rtol=0,
+                                   atol=rel * np.abs(g).max(), err_msg=name)
 
 
 def test_wrapper_on_cpu_launches_nothing():

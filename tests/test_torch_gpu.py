@@ -11,6 +11,9 @@ has only PyTorch:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import json
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -169,41 +172,141 @@ def _dw_counts():
     return (tdw.launch_counts[tdw.KERNEL], tdw.launch_counts[tdw.KERNEL_DX])
 
 
-def _dw_args(b, h, w, c, dtype, seed=3):
+def _dw_args(b, h, w, c, dtype, seed=3, tap_dtype=None):
+    """x, the taps as _DepthwiseConv passes them (a (3, 3, C) view of a
+    (C, 1, 3, 3) weight; in x's dtype unless ``tap_dtype``), scale, bias."""
     g = torch.Generator().manual_seed(seed)
     x = (2.0 * torch.randn((b, h, w, c), generator=g)).to(dtype).cuda()
-    taps = torch.randn((3, 3, c), generator=g).to(dtype).cuda()
+    weight = torch.randn((c, 1, 3, 3), generator=g).to(tap_dtype or dtype)
+    taps = weight.cuda()[:, 0].permute(1, 2, 0)
     scale = (1.0 + 0.3 * torch.randn(c, generator=g)).cuda()
     bias = (0.5 * torch.randn(c, generator=g)).cuda()
     return x, taps, scale, bias
 
 
 DW_SHAPES = [
-    dict(b=4, h=20, w=20, c=96),    # C % 8 == 0: 16-byte vector path
+    dict(b=4, h=20, w=20, c=96),    # C % 8 == 0: 8 channels a thread
     dict(b=2, h=9, w=11, c=32),     # odd H and W
     dict(b=3, h=6, w=6, c=24),      # stride 2 pads (0, 1)
-    dict(b=2, h=7, w=5, c=12),      # C % 8 != 0: scalar path
+    dict(b=2, h=7, w=5, c=12),      # C % 8 != 0: 4 channels a thread
+    # sizes that cross the tiles' edges (H, W no multiple of a tile), one
+    # row, one column, one image, C = 8 and 960, and a flagship layer
+    dict(b=2, h=33, w=70, c=24),
+    dict(b=3, h=1, w=37, c=8),
+    dict(b=3, h=35, w=1, c=12),
+    dict(b=1, h=19, w=19, c=960),
+    dict(b=1, h=1, w=1, c=960),
+    dict(b=40, h=128, w=128, c=32),
 ]
 
 
+@pytest.mark.parametrize("taps", ["same", "f32"], ids=["taps_x", "taps_f32"])
 @pytest.mark.parametrize("relu6", [False, True], ids=["linear", "relu6"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("shape", DW_SHAPES)
-def test_cuda_depthwise_matches_plain(shape, stride, dtype, relu6):
+def test_cuda_depthwise_matches_plain(shape, stride, dtype, relu6, taps):
     """The kernel sums the nine products in the plain version's order with
     no FMA contraction, then the affine, the clip and one rounding:
-    bit-equal."""
+    bit-equal, with the identity affine (no scale, no bias) or an affine
+    with ReLU6, taps in x's dtype or float32, read through the model's
+    permuted view."""
     _need_card()
-    x, taps, scale, bias = _dw_args(**shape, dtype=dtype)
+    x, w, scale, bias = _dw_args(**shape, dtype=dtype,
+                                 tap_dtype=torch.float32 if taps == "f32"
+                                 else None)
+    if not relu6:
+        scale = bias = None
     before = _dw_counts()
-    got = tdw.depthwise_conv3x3(x, taps, stride=stride, scale=scale,
+    got = tdw.depthwise_conv3x3(x, w, stride=stride, scale=scale,
                                 bias=bias, relu6=relu6)
     torch.cuda.synchronize()
     assert _dw_counts() == (before[0] + 1, before[1])
-    want = tdw.reference_impl(x, taps, scale, bias, stride, relu6)
+    want = tdw.reference_impl(x, w, scale, bias, stride, relu6)
     assert got.dtype == dtype and tuple(got.shape) == tuple(want.shape)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_cuda_depthwise_flipped_taps(shape, dtype):
+    """The input gradient's launch: the taps read flipped in both spatial
+    axes, bit-equal to the plain version on a flipped copy."""
+    _need_card()
+    x, w, _, _ = _dw_args(**shape, dtype=dtype)
+    before = _dw_counts()
+    got = tdw._dw(x, w, None, None, 1, False, tdw.KERNEL_DX, True)
+    torch.cuda.synchronize()
+    assert _dw_counts() == (before[0], before[1] + 1)
+    torch.testing.assert_close(
+        got, tdw.reference_impl(x, w.flip(0, 1), None, None, 1, False),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_depthwise_is_deterministic(stride):
+    """Every output is one thread's sum in one order: two calls give the
+    same bytes."""
+    _need_card()
+    x, w, scale, bias = _dw_args(8, 40, 40, 144, torch.bfloat16)
+    first = tdw.depthwise_conv3x3(x, w, stride=stride, scale=scale,
+                                  bias=bias, relu6=True)
+    second = tdw.depthwise_conv3x3(x, w, stride=stride, scale=scale,
+                                   bias=bias, relu6=True)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def _device_kernels(fn, path):
+    """Names of the kernels ``fn`` puts on the card: the "kernel" events of
+    a torch.profiler trace written to ``path``. A later session in a
+    process can miss its first kernels (and a trace its last), so runs of
+    marker kernels (torch.cuda._sleep's spin_kernel) come before and after
+    ``fn``; the trace must begin and end with a marker."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(10_000_000)
+        for _ in range(32):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(32):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in sorted(
+        (e for e in events if e.get("ph") == "X" and e.get("cat") ==
+         "kernel"), key=lambda e: float(e["ts"]))]
+    marks = ["spin_kernel" in n for n in names]
+    assert marks and marks[0] and marks[-1], names
+    return [n for n, m in zip(names, marks) if not m]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_depthwise_one_kernel_a_call(dtype, tmp_path):
+    """A forward call as _DepthwiseConv makes it, and a stride-1
+    input-gradient call on a contiguous cotangent, each put exactly one
+    kernel on the card (torch.profiler)."""
+    _need_card()
+    x, w, _, _ = _dw_args(4, 20, 20, 96, dtype)
+    with torch.no_grad():
+        tdw.depthwise_conv3x3(x, w)
+    fwd = _device_kernels(lambda: tdw.depthwise_conv3x3(x, w),
+                          tmp_path / "fwd.json")
+    xg = x.detach().requires_grad_(True)
+    out = tdw.depthwise_conv3x3(xg, w)
+    ct = torch.randn(out.shape, device="cuda").to(dtype)
+    torch.autograd.grad(out, xg, ct, retain_graph=True)
+    dx = _device_kernels(lambda: torch.autograd.grad(out, xg, ct,
+                                                     retain_graph=True),
+                         tmp_path / "dx.json")
+    assert len(fwd) == 1 and "dw3x3" in fwd[0], fwd
+    assert len(dx) == 1 and "dw3x3" in dx[0], dx
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
