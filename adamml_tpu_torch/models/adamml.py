@@ -21,6 +21,7 @@ from .joint_net import JointMainNet
 from .policy_net import PolicyNet
 
 INIT_TEMPERATURE = 5.0       # reference models/policy_net.py:273
+TEMPERATURE_DECAY = 0.965    # per alternating epoch, train_adamml.py:516
 
 
 def split_modalities(modality: Sequence[str]

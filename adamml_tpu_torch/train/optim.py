@@ -6,7 +6,9 @@ trains with torch Adam (L2 in the gradient, not AdamW), b1 0.9, b2 0.999,
 eps 1e-8, bias-corrected. Both are torch's per-tensor optimizers with
 ``foreach=True``, which compute the JAX package's update; its FusedSGD
 ravels the parameters into one vector only to cut TPU dispatches, which
-``foreach`` does here. The step sets each optimizer's learning rate per call.
+``foreach`` does here; ``fused_update=False`` (``--no_fused_update``) gives
+``foreach=False``, one update per tensor, the same math and the same state
+dict. The step sets each optimizer's learning rate per call.
 Frozen parameters carry no gradient (None, not zero), so neither optimizer
 decays or moves them.
 """
@@ -31,12 +33,12 @@ def build_optimizer(kind: str, cfg_optim,
                                momentum=cfg_optim.momentum,
                                nesterov=cfg_optim.nesterov,
                                weight_decay=cfg_optim.weight_decay,
-                               foreach=True)
+                               foreach=cfg_optim.fused_update)
     if kind == "policy":
         return torch.optim.Adam(params, lr=cfg_optim.p_lr, betas=ADAM_BETAS,
                                 eps=ADAM_EPS,
                                 weight_decay=cfg_optim.weight_decay,
-                                foreach=True)
+                                foreach=cfg_optim.fused_update)
     raise ValueError(kind)
 
 

@@ -16,6 +16,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ..data.aug_params import OVERSAMPLE_CENTER
 from .losses import compute_policy_loss, cross_entropy
 from .optim import clip_by_global_norm, set_lr
 from .train_state import EvalState, StageFlags, TrainState
@@ -105,23 +106,75 @@ def make_adamml_train_step(model: nn.Module, *, flags: StageFlags,
     return step
 
 
+def _crop_mean(logits: torch.Tensor, num_crops: int) -> torch.Tensor:
+    """Average logits over the crops that the device pipeline folded into
+    the batch, crop-major per sample."""
+    return logits.reshape((-1, num_crops) + tuple(logits.shape[1:])).mean(1)
+
+
 def make_adamml_eval_step(model: nn.Module, num_crops: int = 1) -> Callable:
     """Returns step(state, inputs, target, seed) -> (logits, decisions,
     loss). Gumbel noise is still drawn at eval, as in the reference
     (F.gumbel_softmax samples under model.eval()), from a generator on the
-    model's device seeded per step. Runs under torch.no_grad()."""
-    if num_crops != 1:
-        raise NotImplementedError(
-            "num_crops > 1 needs the oversample crop geometry "
-            "(adamml_tpu/data/aug_params.py), which waits for the data slice")
+    model's device seeded per step. Runs under torch.no_grad().
+
+    num_crops > 1 (multi-crop oversample eval, reference GroupOverSample):
+    inputs carry N*num_crops rows; logits average over the crops and the
+    reported decisions are the canonical centre-unflipped crop's."""
     device = next(model.parameters()).device
+    center = OVERSAMPLE_CENTER[num_crops]
 
     @torch.no_grad()
     def step(state: EvalState, inputs, target: torch.Tensor, seed: int):
         gumbel, _ = step_generators(device, seed, state.step)
         logits, decisions = model(inputs, state.temperature, train=False,
                                   generator=gumbel)
+        if num_crops > 1:
+            logits = _crop_mean(logits, num_crops)
+            decisions = decisions.reshape(
+                (-1, num_crops) + tuple(decisions.shape[1:]))[:, center]
         loss = cross_entropy(logits, target)
         return logits, decisions, loss
+
+    return step
+
+
+def make_unimodal_train_step(model: nn.Module, *,
+                             clip_gradient: Optional[float]) -> Callable:
+    """Single-backbone step of train_unimodal (reference
+    utils/utils.py:187-265): returns step(state, inputs, target, lr, seed)
+    -> metrics (loss, top1, top5 on the model's device). It updates the
+    model and ``state.main_opt`` in place; ``state.policy_opt`` is None."""
+    device = next(model.parameters()).device
+
+    def step(state: TrainState, inputs: torch.Tensor, target: torch.Tensor,
+             lr: float, seed: int):
+        state.main_opt.zero_grad(set_to_none=True)
+        _, drop = step_generators(device, seed, state.step)
+        logits = model(inputs, train=True, generator=drop)
+        loss = cross_entropy(logits, target)
+        loss.backward()
+        clip_by_global_norm(model.parameters(), clip_gradient)
+        set_lr(state.main_opt, lr)
+        state.main_opt.step()
+        state.step += 1
+        return {"loss": loss.detach(),
+                **_topk_metrics(logits.detach(), target)}
+
+    return step
+
+
+def make_unimodal_eval_step(model: nn.Module, num_crops: int = 1
+                            ) -> Callable:
+    """Returns step(state, inputs, target, seed) -> (logits, loss), with
+    logits averaged over folded crops. Runs under torch.no_grad()."""
+
+    @torch.no_grad()
+    def step(state: EvalState, inputs: torch.Tensor, target: torch.Tensor,
+             seed: int):
+        logits = model(inputs, train=False)
+        if num_crops > 1:
+            logits = _crop_mean(logits, num_crops)
+        return logits, cross_entropy(logits, target)
 
     return step

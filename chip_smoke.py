@@ -52,13 +52,23 @@ Phases, each printing one JSON line (or several):
               summed by stride; then float32, odd sizes, asymmetric
               stride-2 padding, an affine with ReLU6, C % 8 != 0, sizes
               that cross the tiles' edges, the flipped-tap input gradient
-              and a determinism check;
+              and a determinism check; and the step's 51 layers launched
+              back to back in one CUDA-event window (back_to_back);
   tiny_reference, tiny_train  the tiny float32 config on the card against
               the CPU (eval forward; one step of each phase), then the same
               with use_pallas_dw=True (tiny_dw_reference, tiny_dw_train);
   tools       the stage-boundary prototype kernel against its plain version,
               then both kernel tools (adamml_tpu_torch/tools/bench_depthwise
               and bench_tpool) at their shapes;
+  preprocess_card_vs_cpu  one flagship synthetic batch through the device
+              preprocessing on the card and on the CPU (float32, 1e-3);
+  cli         both training CLIs in process, as a user runs them:
+              train_adamml at the flagship's full width through warmup,
+              alternating and finetune on 16 synthetic videos, then its -e
+              evaluation, then train_unimodal (rgb ResNet-50); launch
+              counts zeroed before each run and read after, and every
+              epoch's epilogue launches checked; stage seconds, the
+              engine's ms/batch, data ms/batch and peak memory;
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -78,10 +88,14 @@ import tempfile
 import time
 from collections import Counter
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adamml_tpu_torch.cli import train_adamml, train_unimodal
 from adamml_tpu_torch.configs import flagship_cfg
+from adamml_tpu_torch.configs.config import arg_parser, config_from_args
+from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.mobilenet_v2 import _DepthwiseConv
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
@@ -95,11 +109,13 @@ from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                            bound_ms, event_ms,
                                            l2_flush_buffer, nvidia_smi,
                                            within_one_bf16_ulp)
+from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
                                           make_adamml_train_step)
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
+from adamml_tpu_torch.utils.logging import RankZeroLogger
 
 # the train step's settings (bench.py:156-161)
 LR, P_LR, COST, GAMMAS = 1e-3, 1e-2, [1.0, 0.05], 10.0
@@ -362,7 +378,7 @@ def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
     the same weights and first batch through the plain route: the
     composition (fused_tpool=False) or, with use_pallas_dw, the depthwise op
     patched to its plain version. Returns the launches and, with the flag,
-    the (shape, stride) of every depthwise layer of one batch."""
+    the (shape, stride) of every depthwise layer of one batch, in order."""
     label = "serve_dw" if use_pallas_dw else "serve"
     cfg = flagship_cfg()
     cfg.model.use_pallas_dw = use_pallas_dw
@@ -471,7 +487,7 @@ def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
          max_abs_diff=diff, tolerance=tol, decisions_equal=True)
     del plain, model, step, batches
     torch.cuda.empty_cache()
-    return {"launches": launches, "dw_layers": Counter(layers),
+    return {"launches": launches, "dw_layers": layers,
             "kernels_per_step": step_kernels}
 
 
@@ -899,7 +915,38 @@ def _dw_sum_line(r: dict) -> dict:
                     r["ms"] - r["layers"] * r["floor_ms"], 1e-9))
 
 
-def kernel_dw_phase(dev, layers: Counter) -> dict:
+def _dw_back_to_back(dev, order: list, gen, res: dict) -> float:
+    """The eval step's depthwise layers in the step's order, each bound
+    outside the timed span, launched back to back in one CUDA-event window
+    with no L2 flush between them (as a step runs them; the window is
+    timed 20 times after 3 warm-ups, the L2 flushed before each window).
+    Against the per-layer sum, this shows how much of the per-layer timing
+    floor a step actually pays."""
+    bound = {}
+    for shape, stride in dict.fromkeys(order):
+        x, taps, _, _ = _dw_inputs(shape, torch.bfloat16, gen, dev)
+        # (launch, out): the launch closure holds x and the taps, the pair
+        # keeps its output alive
+        bound[(shape, stride)] = dwk.bind(x, taps, None, None, stride, False)
+    launches = [bound[key][0] for key in order]
+
+    def window():
+        for launch in launches:
+            launch()
+
+    ms = event_ms(window, flush=l2_flush_buffer(dev))
+    emit("kernel_dw", case="back_to_back", layers=len(launches),
+         kernel_ms=ms, bound_ms=res["bound_ms"],
+         share_of_bound=res["bound_ms"] / ms, sum_all_kernel_ms=res["ms"],
+         sum_all_share_of_bound=res["bound_ms"] / res["ms"],
+         timing="CUDA events around all the layers of one eval step in the "
+                "step's order, mean of 20 after 3 warm-up, L2 flushed "
+                "before each window, not between layers")
+    del bound, launches
+    return ms
+
+
+def kernel_dw_phase(dev, order: list) -> dict:
     """The depthwise kernel against reference_impl at every distinct
     (input shape, stride) of one serve_dw batch (bf16, identity affine, no
     clip, taps as _DepthwiseConv passes them), timed as the kernel alone
@@ -923,6 +970,7 @@ def kernel_dw_phase(dev, layers: Counter) -> dict:
            "s1": {k: 0.0 for k in keys}, "s2": {k: 0.0 for k in keys}}
     for r in (res, res["s1"], res["s2"]):
         r["floor_ms"] = floor
+    layers = Counter(order)
     for (shape, stride), count in sorted(layers.items()):
         x, taps, _, _ = _dw_inputs(shape, torch.bfloat16, gen, dev)
         with torch.no_grad():
@@ -976,6 +1024,7 @@ def kernel_dw_phase(dev, layers: Counter) -> dict:
     for case, r in (("sum_stride1", res["s1"]), ("sum_stride2", res["s2"]),
                     ("sum_all", res)):
         emit("kernel_dw", case=case, **_dw_sum_line(r))
+    res["back_to_back_ms"] = _dw_back_to_back(dev, order, gen, res)
 
     for label, shape, stride, dtype, affine in DW_EXTRA_CASES:
         x, taps, scale, bias = _dw_inputs(shape, dtype, gen, dev, affine)
@@ -1131,6 +1180,265 @@ def tools_phase(dev) -> dict:
     return res
 
 
+# the flagship's flags (flagship_cfg(): ResNet-50, 224, default canvas and
+# audio) with a synthetic epoch of 16 videos, 8 clips a batch. A model_best
+# is written only when a validation's top-1 beats 0, which a random model
+# on 16 videos and 31 classes often misses: on the H100 seeds 0-5 scored 0
+# at the alternating epoch and seed 7 scored 6.25, so seed 7 drives the
+# model_best reload (the checks accept either outcome, consistently)
+CLI_ADAMML = (
+    "--dataset synthetic --modality rgb sound --groups 8 --frames_per_group 4 "
+    "--num_segments 5 --dense_sampling --causality_modeling lstm "
+    "--learnable_lf_weights --cost_weights 1.0 0.05 --sync-bn "
+    "--synthetic_length 16 --val_num_clips 5 -b 8 --warmup_epochs 1 "
+    "--epochs 1 --finetune_epochs 1 -j 8 --seed 7").split()
+CLI_UNIMODAL = (
+    "--dataset synthetic --modality rgb --backbone_net resnet -d 50 "
+    "--groups 8 -b 8 --epochs 1 --synthetic_length 16 -j 8").split()
+BANNERS = ("Stage [Warming up]", "Stage [Alternative training]: 1 epochs",
+           "Stage [Alternative training]: Training Main net",
+           "Stage [Alternative training]: Training Policy net",
+           "Stage [Post finetuning]")
+
+
+class _CliProbe:
+    """Wraps the curriculum's train_epoch and validate and the log's lines
+    while a CLI runs: each epoch's launches (forward and backward epilogue
+    kernels, depthwise kernel), summary and seconds, and the time of every
+    log line. Measurement only; the CLI runs as a user calls it."""
+
+    def __init__(self):
+        self.epochs, self.lines = [], []
+
+    def __enter__(self):
+        self._saved = (cur.train_epoch, cur.validate, RankZeroLogger.log)
+        train_epoch, validate, log = self._saved
+
+        def wrap(kind, fn):
+            def run(*args, **kwargs):
+                before = all_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                after = all_counts()
+                summary = out[1] if kind == "train" else out
+                self.epochs.append(dict(
+                    kind=kind, seconds=time.perf_counter() - t0,
+                    cost=list(kwargs.get("cost_weights") or []),
+                    summary=summary,
+                    launches={k: after[k] - before[k] for k in after}))
+                return out
+            return run
+
+        def log_line(logger, msg):
+            self.lines.append((time.perf_counter(), msg))
+            return log(logger, msg)
+
+        cur.train_epoch = wrap("train", train_epoch)
+        cur.validate = wrap("val", validate)
+        RankZeroLogger.log = log_line
+        return self
+
+    def __exit__(self, *exc):
+        cur.train_epoch, cur.validate, RankZeroLogger.log = self._saved
+
+
+def _run_cli(main_fn, argv, logdir):
+    """One CLI run on the card: counts zeroed just before, read just after;
+    peak memory; the probe's epochs and log lines; wall seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with _CliProbe() as probe:
+        rc = main_fn(argv + ["--logdir", logdir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{argv[:4]}...: exit code {rc}")
+    return dict(launches=all_counts(), seconds=seconds, t0=t0,
+                end=time.perf_counter(), probe=probe,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _check_epochs(label, epochs, batch=8):
+    """Per epoch: finite losses, selection rates in [0, 100] %, and the
+    epilogue launches: 3 forward a forward pass (a train step or a val
+    batch of ``batch`` clips), 3 backward a main-phase step, 0 in a policy
+    epoch."""
+    for i, e in enumerate(epochs):
+        s, n = e["summary"], None
+        check(math.isfinite(s["loss"]), f"{label} epoch {i}: loss {s['loss']}")
+        sel = s["selection"].values()
+        check(all(0.0 <= 100 * v <= 100.0 for v in sel),
+              f"{label} epoch {i}: selection {s['selection']}")
+        if e["kind"] == "train":
+            n = s["num_batch"]
+            policy = any(e["cost"])
+            want = (3 * n, 0 if policy else 3 * n)
+        else:
+            n = -(-len(s["outputs"]) // batch)
+            want = (3 * n, 0)
+        got = (e["launches"][tp.KERNEL], e["launches"][tp.KERNEL_BWD])
+        check(got == want, f"{label} {e['kind']} epoch {i} ({n} batches): "
+              f"{got} (forward, backward) epilogue launches, expected {want}")
+
+
+def _stage_seconds(run, banners) -> dict:
+    """Wall seconds from each stage banner to the next (the last to the
+    run's end)."""
+    marks = [(t, msg) for t, msg in run["probe"].lines
+             if any(msg.startswith(b) for b in banners)
+             and "Training" not in msg]
+    out = {}
+    for (t, msg), nxt in zip(marks, marks[1:] + [(run["end"], None)]):
+        out[msg.split(":")[0] if "]:" in msg else msg] = nxt[0] - t
+    out["setup_before_first_stage"] = (marks[0][0] - run["t0"] if marks
+                                       else None)
+    return out
+
+
+def _epoch_line(e) -> dict:
+    s = e["summary"]
+    line = dict(kind=e["kind"], seconds=e["seconds"],
+                loss=s["loss"], top1=s["top1"],
+                selection_percent={k: 100 * v
+                                   for k, v in s["selection"].items()},
+                batch_ms=s["batch_time"] * 1e3)
+    if e["kind"] == "train":
+        line.update(phase="policy" if any(e["cost"]) else "main",
+                    batches=s["num_batch"],
+                    dispatch_ms_per_batch=s["batch_time"] * 1e3,
+                    drained_ms_per_batch=s["wall_time"] * 1e3,
+                    data_ms_per_batch=s["data_time"] * 1e3,
+                    data_share_of_drained=s["data_time"] / s["wall_time"])
+    return line
+
+
+def cli_phase(dev, card: str) -> dict:
+    """Both training CLIs in process on the card, as a user runs them:
+    train_adamml at the flagship's full width through the 3-stage
+    curriculum, then its -e evaluation, then train_unimodal (rgb ResNet-50,
+    224, 8 frames). Checks banners, artifacts, losses, selection rates and
+    the epilogue kernels' launches of every epoch; prints one JSON line per
+    run with the stages' wall seconds, the engine's ms/batch, data ms/batch
+    and peak memory."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _run_cli(train_adamml.main, CLI_ADAMML, tmp)
+        lines = [msg for _, msg in run["probe"].lines]
+        seen = [b for b in BANNERS if any(m.startswith(b) for m in lines)]
+        check(seen == list(BANNERS), f"stage banners {seen}")
+        folder = os.path.join(tmp, os.listdir(tmp)[0])
+        files = set(os.listdir(folder))
+        alt_top1 = run["probe"].epochs[3]["summary"]["top1"]
+        # a model_best exists when the alternating epoch's val top-1 beat
+        # the initial best of 0 (random weights may score 0 on 16 videos)
+        best = alt_top1 > 0
+        want = {"checkpoint", "checkpoint_warmup_01", "checkpoint_main_01",
+                "checkpoint_finetune_01", "all_selection_main_1.npz",
+                "all_selection_finetune_1.npz", "log.log"} | (
+                    {"model_best"} if best else set())
+        check(want <= files, f"artifacts {sorted(files)}, missing "
+                             f"{sorted(want - files)}")
+        check(any(m.startswith("Loaded model_best") for m in lines) == best,
+              f"model_best reload (alternating top-1 {alt_top1}) not as "
+              f"expected: {[m for m in lines if 'best' in m]}")
+        kinds = [(e["kind"], bool(any(e["cost"])))
+                 for e in run["probe"].epochs]
+        check(kinds == [("train", False), ("train", False), ("train", True),
+                        ("val", False), ("train", False), ("val", False)],
+              f"epochs {kinds}")
+        _check_epochs("train_adamml", run["probe"].epochs)
+        out["train_adamml"] = run["launches"]
+        emit("cli", run="train_adamml", card=card, argv=CLI_ADAMML,
+             seconds=run["seconds"], stage_seconds=_stage_seconds(
+                 run, BANNERS), epochs=[_epoch_line(e)
+                                        for e in run["probe"].epochs],
+             launches=run["launches"], max_memory_allocated_bytes=run["peak"],
+             model_best=best, artifacts=sorted(files),
+             timing="host clock; each epoch and validation ends in "
+                    "torch.cuda.synchronize()")
+
+        ev = _run_cli(train_adamml.main, CLI_ADAMML + ["-e"], tmp)
+        files = set(os.listdir(folder))
+        d = config_from_args(arg_parser().parse_args(CLI_ADAMML)).data
+        npy = (f"val_{d.num_crops}crops_{d.val_num_clips}clips_"
+               f"{d.input_size}_details_.npy")
+        check({"all_selection.npz", npy} <= files, f"-e wrote {sorted(files)}")
+        outputs = np.load(os.path.join(folder, npy))
+        sel = np.load(os.path.join(folder, "all_selection.npz"))
+        check(outputs.shape == (d.synthetic_length, 31)
+              and np.isfinite(outputs).all(), f"-e outputs {outputs.shape}")
+        check(sel["selections"].shape == (d.synthetic_length,
+                                          d.val_num_clips, 2),
+              f"-e selections {sel['selections'].shape}")
+        _check_epochs("train_adamml -e", ev["probe"].epochs)
+        out["train_adamml_evaluate"] = ev["launches"]
+        emit("cli", run="train_adamml -e", card=card, seconds=ev["seconds"],
+             epochs=[_epoch_line(e) for e in ev["probe"].epochs],
+             launches=ev["launches"], max_memory_allocated_bytes=ev["peak"],
+             outputs_shape=list(outputs.shape))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _run_cli(train_unimodal.main, CLI_UNIMODAL, tmp)
+        folder = os.path.join(tmp, os.listdir(tmp)[0])
+        files = set(os.listdir(folder))
+        check({"checkpoint", "checkpoint_01", "log.log"} <= files,
+              f"train_unimodal artifacts {sorted(files)}")
+        kinds = [e["kind"] for e in run["probe"].epochs]
+        check(kinds == ["train", "val"], f"train_unimodal epochs {kinds}")
+        _check_epochs("train_unimodal", run["probe"].epochs)
+        out["train_unimodal"] = run["launches"]
+        emit("cli", run="train_unimodal", card=card, argv=CLI_UNIMODAL,
+             seconds=run["seconds"],
+             epochs=[_epoch_line(e) for e in run["probe"].epochs],
+             launches=run["launches"], max_memory_allocated_bytes=run["peak"],
+             artifacts=sorted(files))
+    torch.cuda.empty_cache()
+    return out
+
+
+def preprocess_phase(dev) -> None:
+    """One flagship synthetic training batch (8 clips, rgb 5 x 8 frames on
+    the 256x464 canvas, sound 5 x 1.28 s) through make_batch_preprocessor
+    on the card and on the CPU, float32 out (compute_dtype float32, TF32
+    off): each modality within 1e-3; plus the card's time for a batch."""
+    cfg = flagship_cfg()
+    cfg.model.compute_dtype = "float32"
+    cfg.data.dataset = "synthetic"
+    cfg.data.synthetic_length = cfg.optim.batch_size = 8
+    ds = cur._make_dataset(cfg, is_train=True,
+                           num_clips=cfg.model.num_segments)
+    batch = next(iter(cur._make_loader(cfg, ds, is_train=True)))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        pre = make_batch_preprocessor(
+            cfg, train=True, num_segments=cfg.model.num_segments, device=d)
+        inputs, target = pre(batch)
+        got[d.type] = [x.cpu() for x in inputs]
+    pre = make_batch_preprocessor(
+        cfg, train=True, num_segments=cfg.model.num_segments, device=dev)
+    pre(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pre(batch)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) / 5 * 1e3
+    errs = {m: float((a - b).abs().max()) for m, a, b in
+            zip(cfg.model.modality, got["cuda"], got["cpu"])}
+    check(all(e <= 1e-3 for e in errs.values()),
+          f"preprocessing card vs CPU: {errs} > 1e-3")
+    emit("preprocess_card_vs_cpu", max_abs_diff=errs, tolerance=1e-3,
+         shapes={m: list(x.shape) for m, x in
+                 zip(cfg.model.modality, got["cpu"])},
+         card_ms_per_batch=card_ms,
+         timing="host clock over 5 calls after 1 warm-up, ending in "
+                "torch.cuda.synchronize(): host batch to inputs on the "
+                "card, pinned copy included")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1173,6 +1481,8 @@ def main() -> int:
     tiny_reference_phase(dev, use_pallas_dw=True)
     tiny_train_phase(dev, use_pallas_dw=True)
     ores = tools_phase(dev)
+    preprocess_phase(dev)
+    cres = cli_phase(dev, smi)
 
     def bound_by(res):
         return "bytes" if res["bytes_s"] >= res["ops_s"] else "operations"
@@ -1193,7 +1503,11 @@ def main() -> int:
             "train_policy": tres["policy"][tp.KERNEL],
             "serve_dw": sdw["launches"][tp.KERNEL],
             "train_dw_main": tdw["main"][tp.KERNEL],
-            "train_dw_policy": tdw["policy"][tp.KERNEL]},
+            "train_dw_policy": tdw["policy"][tp.KERNEL],
+            "cli_train_adamml": cres["train_adamml"][tp.KERNEL],
+            "cli_train_adamml_evaluate":
+                cres["train_adamml_evaluate"][tp.KERNEL],
+            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL]},
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip eval step; "
                 "launches are the serve path's (5 batches)"}, {
@@ -1210,7 +1524,9 @@ def main() -> int:
             "train_main": tres["main"][tp.KERNEL_BWD],
             "train_policy": tres["policy"][tp.KERNEL_BWD],
             "train_dw_main": tdw["main"][tp.KERNEL_BWD],
-            "train_dw_policy": tdw["policy"][tp.KERNEL_BWD]},
+            "train_dw_policy": tdw["policy"][tp.KERNEL_BWD],
+            "cli_train_adamml": cres["train_adamml"][tp.KERNEL_BWD],
+            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL_BWD]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "

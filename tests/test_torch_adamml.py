@@ -166,8 +166,14 @@ def test_eval_step_draws_seeded_noise(bundle):
     assert set(runs[0][1].unique().tolist()) <= {0.0, 1.0}
     assert torch.equal(runs[0][0], runs[1][0])
     assert tsteps.step_seed(7, 0) != tsteps.step_seed(7, 1)
-    with pytest.raises(NotImplementedError, match="num_crops"):
-        tsteps.make_adamml_eval_step(tmodel, num_crops=3)
+    # three identical crops folded crop-major into the batch: their mean is
+    # the single crop's logits, and the centre crop's noise is drawn too
+    step3 = tsteps.make_adamml_eval_step(tmodel, num_crops=3)
+    logits3, dec3, _ = step3(EvalState(), [a.repeat_interleave(3, 0)
+                                           for a in inputs], t(target), 7)
+    assert tuple(logits3.shape) == tuple(runs[0][0].shape)
+    assert tuple(dec3.shape) == tuple(runs[0][1].shape)
+    assert set(dec3.unique().tolist()) <= {0.0, 1.0}
 
 
 def test_converter_fills_every_parameter(bundle):

@@ -1,8 +1,9 @@
 """PyTorch port on a CUDA card: the fused epilogue's forward and backward
 kernels, the depthwise kernel (forward and flipped-tap input gradient) and
-the stage-boundary prototype kernel against their plain versions, and the
+the stage-boundary prototype kernel against their plain versions, the
 tiny float32 eval and train steps on the card against the CPU, with the
-depthwise flag off and on.
+depthwise flag off and on, and the device preprocessing and a tiny
+train_adamml run on the card against the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The file imports no JAX, so it also runs on a machine that
@@ -18,13 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+from adamml_tpu_torch.cli import train_adamml
 from adamml_tpu_torch.configs import flagship_cfg
+from adamml_tpu_torch.configs.config import arg_parser, config_from_args
+from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.ops.augment import policy_stream
 from adamml_tpu_torch.ops.kernels import depthwise as tdw
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
+from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
                                           make_adamml_train_step)
@@ -542,3 +547,80 @@ def test_tiny_train_step_on_card_matches_cpu(phase, monkeypatch):
 @pytest.mark.parametrize("phase", ["main", "policy"])
 def test_tiny_dw_train_step_on_card_matches_cpu(phase, monkeypatch):
     _tiny_train_step(phase, True, monkeypatch)
+
+
+def _st_zero_noise(generator, logits, tau):
+    """Zero-noise straight-through decision: no generator stream, so the
+    card and the CPU take the same decisions."""
+    y = torch.softmax(logits / tau, dim=-1)
+    hard = (logits.argmax(-1) == 1).float()
+    return hard + y[..., 1] - y[..., 1].detach()
+
+
+def test_preprocess_on_card_matches_cpu(monkeypatch):
+    """One synthetic batch of all four modalities (train crops and flips,
+    then 3 oversample crops) through make_batch_preprocessor on the card
+    and on the CPU, float32 with TF32 off: within 1e-3 (the einsum
+    contractions and cuFFT sum in another order)."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    argv = ("--dataset synthetic --modality rgb flow rgbdiff sound "
+            "--groups 2 --frames_per_group 2 --num_segments 2 "
+            "--dense_sampling --input_size 32 --audio_length 0.16 "
+            "--compute_dtype float32 --num_crops 3 -b 4").split()
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    cfg.data.canvas_size = (64, 96)
+    for train in (True, False):
+        ds = cur._make_dataset(cfg, is_train=train, num_clips=2)
+        batch = next(iter(cur._make_loader(cfg, ds, is_train=train)))
+        got = {}
+        for dev in ("cuda", "cpu"):
+            x, y = make_batch_preprocessor(cfg, train=train, num_segments=2,
+                                           device=dev)(batch)
+            assert all(t_.device.type == dev for t_ in x + [y])
+            got[dev] = [t_.cpu() for t_ in x]
+        for m, a, b in zip(cfg.model.modality, got["cuda"], got["cpu"]):
+            assert a.shape == b.shape, m
+            assert float((a - b).abs().max()) <= 1e-3, m
+
+
+def test_tiny_cli_on_card_matches_cpu(monkeypatch, tmp_path):
+    """train_adamml.main at the tiny settings on the card and on the CPU,
+    float32, dropout 0, zero-noise decisions, TF32 off: the warmup epoch's
+    loss (the same weights and batch) within 1e-3 relative; every epoch's
+    loss finite; the same artifacts; the epilogue kernels launched on the
+    card (2 stage boundaries at 4 frames)."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(tpolicy, "gumbel_decision", _st_zero_noise)
+    argv = ("--dataset synthetic --modality rgb sound -d 18 --groups 4 "
+            "--num_segments 2 --dense_sampling --val_num_clips 2 -b 8 "
+            "--epochs 1 --warmup_epochs 1 --finetune_epochs 1 "
+            "--input_size 32 --audio_length 0.16 --synthetic_length 8 "
+            "--causality_modeling lstm --cost_weights 1.0 0.05 "
+            "--compute_dtype float32 --scale_range 36 48 -j 2 --dropout 0 "
+            "--lr_scheduler multisteps --lr_steps 1 --seed 5").split()
+    losses = {}
+    train_epoch = cur.train_epoch
+
+    def rec(*args, **kw):
+        state, s = train_epoch(*args, **kw)
+        losses.setdefault(dev, []).append(s["loss"])
+        return state, s
+
+    monkeypatch.setattr(cur, "train_epoch", rec)
+    names = {}
+    for dev in ("cuda", "cpu"):
+        before = dict(ttp.launch_counts)
+        assert train_adamml.main(argv + ["--logdir", str(tmp_path / dev)],
+                                 device=dev) == 0
+        launched = ttp.launch_counts[ttp.KERNEL] - before[ttp.KERNEL]
+        assert (launched > 0) == (dev == "cuda")
+        folder = next(p for p in (tmp_path / dev).iterdir())
+        names[dev] = {p.name for p in folder.iterdir()}
+    assert names["cuda"] == names["cpu"]
+    assert len(losses["cuda"]) == len(losses["cpu"]) == 4
+    assert all(np.isfinite(losses["cuda"]))
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-3 * abs(
+        losses["cpu"][0])
