@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -71,7 +71,10 @@ def peek_meta(path: str) -> dict:
 def check_layout(meta: dict, path: str) -> None:
     saved = meta.get("optim_layout")
     if saved != LAYOUT:
-        origin = ("an orbax checkpoint of the JAX package (adamml_tpu)"
+        origin = ("an orbax checkpoint of the JAX package (adamml_tpu); "
+                  "reading it needs jax and orbax, so it waits for the "
+                  "orbax import tool (ROADMAP A.19), which is not part of "
+                  "this package"
                   if saved in ("fused", "per_tensor")
                   else "not a checkpoint of this package")
         raise RuntimeError(f"checkpoint {path!r} has layout {saved!r}, "
@@ -79,15 +82,20 @@ def check_layout(meta: dict, path: str) -> None:
                            f"{LAYOUT!r} only")
 
 
-def load_checkpoint(path: str, model: nn.Module, state: TrainState) -> dict:
-    """Restore the model, both optimizers, temperature and step in place
-    (tensors land on the model's device) and return the meta."""
+def read_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:
+    """(meta, tensors) of a checkpoint directory, its layout checked
+    first."""
     path = os.path.abspath(path)
     meta = peek_meta(path)
     check_layout(meta, path)
-    device = next(model.parameters()).device
-    payload = torch.load(os.path.join(path, _STATE), map_location=device,
-                         weights_only=True)
+    return meta, torch.load(os.path.join(path, _STATE),
+                            map_location=map_location, weights_only=True)
+
+
+def load_checkpoint(path: str, model: nn.Module, state: TrainState) -> dict:
+    """Restore the model, both optimizers, temperature and step in place
+    (tensors land on the model's device) and return the meta."""
+    meta, payload = read_checkpoint(path, next(model.parameters()).device)
     model.load_state_dict(payload["model"])
     state.main_opt.load_state_dict(payload["main_opt"])
     if state.policy_opt is not None and "policy_opt" in payload:

@@ -18,7 +18,7 @@ left unused and on any port parameter or buffer left unfilled.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,19 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
+def flax_leaves(params: Mapping, batch_stats: Mapping
+                ) -> Iterator[Tuple[str, Optional[str], np.ndarray]]:
+    """(flax path, port state-dict name or None for a leaf this mapping
+    does not know, value in the port's layout) for every leaf of
+    ``{params, batch_stats}``."""
+    for tree, leaf_map in ((params, _PARAM_LEAF), (batch_stats, _STAT_LEAF)):
+        for path, value in _flatten(tree).items():
+            leaf = path[-1]
+            name = (".".join(path[:-1] + (leaf_map[leaf],))
+                    if leaf in leaf_map else None)
+            yield "/".join(path), name, _to_torch_layout(leaf, value)
+
+
 @torch.no_grad()
 def load_flax_variables(model: nn.Module, params: Mapping,
                         batch_stats: Mapping) -> nn.Module:
@@ -54,23 +67,18 @@ def load_flax_variables(model: nn.Module, params: Mapping,
     targets.update(model.named_buffers())
     filled = set()
     unused = []
-    for tree, leaf_map in ((params, _PARAM_LEAF), (batch_stats, _STAT_LEAF)):
-        for path, value in _flatten(tree).items():
-            leaf = path[-1]
-            name = ".".join(path[:-1] + (leaf_map.get(leaf, "?"),))
-            if leaf not in leaf_map or name not in targets:
-                unused.append("/".join(path))
-                continue
-            t = targets[name]
-            v = _to_torch_layout(leaf, value)
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"{'/'.join(path)}: flax shape "
-                                 f"{value.shape} does not fit {name} "
-                                 f"{tuple(t.shape)}")
-            if name in filled:
-                raise ValueError(f"{name} filled twice")
-            t.copy_(torch.tensor(np.ascontiguousarray(v), dtype=t.dtype))
-            filled.add(name)
+    for path, name, v in flax_leaves(params, batch_stats):
+        if name not in targets:
+            unused.append(path)
+            continue
+        t = targets[name]
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: does not fit {name} {tuple(t.shape)} "
+                             f"(port layout {v.shape})")
+        if name in filled:
+            raise ValueError(f"{name} filled twice")
+        t.copy_(torch.tensor(np.ascontiguousarray(v), dtype=t.dtype))
+        filled.add(name)
     if unused:
         raise ValueError(f"flax keys left unused: {sorted(unused)}")
     missing = sorted(set(targets) - filled)

@@ -34,6 +34,9 @@ def main(argv=None, device=None) -> int:
         raise ValueError("mean must have 1 or 3 entries")
     if cfg.data.std is not None and len(cfg.data.std) not in (1, 3):
         raise ValueError("std must have 1 or 3 entries")
+    if cfg.runtime.pretrained or cfg.runtime.unimodality_pretrained:
+        raise ValueError("--pretrained and --unimodality_pretrained load "
+                         "into the AdaMML model: train_adamml takes them")
     init_distributed(cfg)
 
     from ..train.curriculum import UnimodalTrainer

@@ -324,9 +324,14 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default="", type=str)
     p.add_argument("--auto_resume", action="store_true")
     p.add_argument("--pretrained", default=None, type=str,
-                   help="not ported yet: rejected")
+                   help="a checkpoint directory of this package: its "
+                        "parameters, BN statistics and temperature, grafted "
+                        "by name and shape")
     p.add_argument("--unimodality_pretrained", type=str, nargs="+", default=[],
-                   help="not ported yet: rejected")
+                   help="one unimodal checkpoint per modality (a checkpoint "
+                        "directory of this package or a reference "
+                        ".pth/.pth.tar/.pt), loaded strictly into "
+                        "main_net.net_<modality>")
     p.add_argument("--start-epoch", dest="start_epoch", default=0, type=int)
     p.add_argument("--clip_gradient", "--cg", dest="clip_gradient", default=None, type=float)
     p.add_argument("--curr_stage", default="warmup",
@@ -426,15 +431,8 @@ _REJECTED = (
      "eval-capacity conditional compute is not ported yet (ROADMAP A.17)"),
     ("--profile_dir", lambda a: bool(a.profile_dir),
      "step profiling is not ported yet (ROADMAP A.15)"),
-    ("--pretrained", lambda a: a.pretrained is not None,
-     "pretrained loading is not ported yet (ROADMAP A.14)"),
-    ("--unimodality_pretrained", lambda a: bool(a.unimodality_pretrained),
-     "pretrained loading is not ported yet (ROADMAP A.14)"),
     ("--pred_files", lambda a: bool(a.pred_files),
      "ensemble scoring is not ported yet (ROADMAP A.15)"),
-    ("--dataset", lambda a: a.dataset != "synthetic",
-     "only the synthetic dataset is ported; real video data is ROADMAP "
-     "A.13"),
     ("--multiprocessing-distributed",
      lambda a: a.multiprocessing_distributed,
      "multi-process runs are not ported yet (ROADMAP A.16)"),

@@ -33,11 +33,15 @@ import torch
 
 from ..ckpt.checkpoint import (CheckpointManager, load_checkpoint,
                                save_checkpoint)
+from ..ckpt.pretrained import (load_pretrained_adamml,
+                               load_unimodality_pretrained)
 from ..configs.config import ExperimentConfig
+from ..configs.dataset_config import get_dataset_config
 from ..data.dataflow import HostDataLoader
 from ..data.device_pipeline import (make_batch_preprocessor,
                                     make_unimodal_preprocessor)
 from ..data.synthetic import SyntheticVideoDataset
+from ..data.video_dataset import MultiVideoDataset
 from ..models.adamml import INIT_TEMPERATURE, TEMPERATURE_DECAY
 from ..models.model_builder import build_model
 from ..utils.device import resolve_device
@@ -62,19 +66,32 @@ def split_seed(seed: int) -> Tuple[int, int]:
 
 def _make_dataset(cfg: ExperimentConfig, *, is_train: bool, num_clips: int):
     d, m = cfg.data, cfg.model
-    if d.dataset != "synthetic":
-        raise ValueError(f"dataset {d.dataset!r}: only the synthetic dataset "
-                         "is ported (real video data is ROADMAP A.13)")
     # --random_sampling drives non-fixed-offset val/test clip starts
     # (reference opts.py:91 -> utils/video_dataset.py fixed_offset)
-    return SyntheticVideoDataset(
-        modality=m.modality, length=d.synthetic_length,
-        num_groups=m.groups, frames_per_group=m.frames_per_group,
-        num_clips=num_clips, num_classes=m.num_classes,
-        canvas_size=d.canvas_size, audio_length=d.audio_length,
-        resampling_rate=d.resampling_rate, is_train=is_train,
-        dense_sampling=d.dense_sampling, fixed_offset=not d.random_sampling,
-        seed=cfg.runtime.seed + (0 if is_train else 1))
+    fixed_offset = not d.random_sampling
+    if d.dataset == "synthetic":
+        return SyntheticVideoDataset(
+            modality=m.modality, length=d.synthetic_length,
+            num_groups=m.groups, frames_per_group=m.frames_per_group,
+            num_clips=num_clips, num_classes=m.num_classes,
+            canvas_size=d.canvas_size, audio_length=d.audio_length,
+            resampling_rate=d.resampling_rate, is_train=is_train,
+            dense_sampling=d.dense_sampling, fixed_offset=fixed_offset,
+            seed=cfg.runtime.seed + (0 if is_train else 1))
+    meta = get_dataset_config(d.dataset)
+    # MultiVideoDataset covers unimodal too (a one-entry modality list), so
+    # every consumer sees the same {modality: payload} contract
+    return MultiVideoDataset(
+        d.datadir, meta.train_list_name if is_train else meta.val_list_name,
+        m.modality, num_groups=m.groups,
+        frames_per_group=m.frames_per_group, num_clips=num_clips,
+        dense_sampling=d.dense_sampling, fixed_offset=fixed_offset,
+        image_tmpl=meta.image_tmpl, is_train=is_train,
+        separator=meta.filename_separator, filter_video=meta.filter_video,
+        num_classes=m.num_classes, fps=d.fps, audio_length=d.audio_length,
+        resampling_rate=d.resampling_rate, canvas_size=d.canvas_size,
+        use_native_decoder=d.use_native_decoder,
+        decode_threads=d.decode_threads)
 
 
 def _make_loader(cfg: ExperimentConfig, dataset, *, is_train: bool):
@@ -132,6 +149,18 @@ class AdaMMLTrainer:
         self.has_policy = self.model.policy_net is not None
         self.state = TrainState(None, None, temperature=INIT_TEMPERATURE)
         self._reset_optimizers()
+        # pretrained loading, unimodal graft first (reference
+        # train_adamml.py:144-158 and joint_resnet_mobilenetv2.py:141-155)
+        r = cfg.runtime
+        if r.unimodality_pretrained:
+            load_unimodality_pretrained(
+                self.model, self.modality, r.unimodality_pretrained,
+                depth=cfg.model.depth, fusion_point=cfg.model.fusion_point)
+        if r.pretrained:
+            load_pretrained_adamml(self.model, self.state, r.pretrained)
+            print(f"=> using pre-trained model "
+                  f"(temperature: {float(self.state.temperature)})",
+                  flush=True)
 
         # steps
         common = dict(penalty_type=cfg.model.penalty_type,
@@ -294,8 +323,9 @@ class AdaMMLTrainer:
 
         if self.curr_stage == "warmup":
             # no validation in warmup, as in the reference
-            # (train_adamml.py:340-395): best_top1 stays 0.0, so the first
-            # alternating epoch always becomes model_best
+            # (train_adamml.py:340-395): best_top1 stays 0.0, and the first
+            # alternating epoch becomes model_best only if its validation
+            # top-1 is above 0 (a top-1 of 0 writes no model_best)
             logger.log(f"Stage [Warming up]: Main network with "
                        f"{cfg.optim.warmup_epochs} epochs")
             for epoch in range(self.start_epoch, cfg.optim.warmup_epochs):

@@ -69,6 +69,15 @@ Phases, each printing one JSON line (or several):
               counts zeroed before each run and read after, and every
               epoch's epilogue launches checked; stage seconds, the
               engine's ms/batch, data ms/batch and peak memory;
+  real_data   the paper's recipe on real files: a kinetics-sounds tree
+              generated here (16 videos of 64 JPEGs at 256x340, 24 kHz
+              WAVs, one video without its WAV), the decoder that loads
+              and its ms per frame, one real batch's preprocessing on the
+              card against the CPU, train_unimodal rgb and sound, the
+              flagship curriculum with --unimodality_pretrained (graft
+              checked bit for bit), then -e --pretrained (tensors and
+              temperature checked); every epoch's epilogue launches and
+              every JPEG's decoder counted;
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -95,7 +104,10 @@ import torch.nn.functional as F
 from adamml_tpu_torch.cli import train_adamml, train_unimodal
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.configs.config import arg_parser, config_from_args
+from adamml_tpu_torch.data import loaders
 from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
+from adamml_tpu_torch.data.native_decode import load_error, native_available
+from adamml_tpu_torch.data.video_dataset import VideoDataset
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.mobilenet_v2 import _DepthwiseConv
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
@@ -104,7 +116,8 @@ from adamml_tpu_torch.ops.kernels import build
 from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
-from adamml_tpu_torch.tools import bench_depthwise, bench_tpool
+from adamml_tpu_torch.tools import (bench_depthwise, bench_pipeline,
+                                    bench_tpool)
 from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                            bound_ms, event_ms,
                                            l2_flush_buffer, nvidia_smi,
@@ -1186,12 +1199,14 @@ def tools_phase(dev) -> dict:
 # on 16 videos and 31 classes often misses: on the H100 seeds 0-5 scored 0
 # at the alternating epoch and seed 7 scored 6.25, so seed 7 drives the
 # model_best reload (the checks accept either outcome, consistently)
-CLI_ADAMML = (
-    "--dataset synthetic --modality rgb sound --groups 8 --frames_per_group 4 "
+FLAGSHIP_FLAGS = (
+    "--modality rgb sound --groups 8 --frames_per_group 4 "
     "--num_segments 5 --dense_sampling --causality_modeling lstm "
     "--learnable_lf_weights --cost_weights 1.0 0.05 --sync-bn "
-    "--synthetic_length 16 --val_num_clips 5 -b 8 --warmup_epochs 1 "
-    "--epochs 1 --finetune_epochs 1 -j 8 --seed 7").split()
+    "--val_num_clips 5 -b 8 --warmup_epochs 1 --epochs 1 "
+    "--finetune_epochs 1 -j 8 --seed 7").split()
+CLI_ADAMML = ["--dataset", "synthetic", "--synthetic_length", "16",
+              *FLAGSHIP_FLAGS]
 CLI_UNIMODAL = (
     "--dataset synthetic --modality rgb --backbone_net resnet -d 50 "
     "--groups 8 -b 8 --epochs 1 --synthetic_length 16 -j 8").split()
@@ -1250,6 +1265,8 @@ def _run_cli(main_fn, argv, logdir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    for k in loaders.decode_counts:
+        loaders.decode_counts[k] = 0
     t0 = time.perf_counter()
     with _CliProbe() as probe:
         rc = main_fn(argv + ["--logdir", logdir])
@@ -1258,13 +1275,15 @@ def _run_cli(main_fn, argv, logdir):
     check(rc == 0, f"{argv[:4]}...: exit code {rc}")
     return dict(launches=all_counts(), seconds=seconds, t0=t0,
                 end=time.perf_counter(), probe=probe,
-                peak=torch.cuda.max_memory_allocated())
+                peak=torch.cuda.max_memory_allocated(),
+                decoded=dict(loaders.decode_counts))
 
 
-def _check_epochs(label, epochs, batch=8):
+def _check_epochs(label, epochs, batch=8, per_pass=3):
     """Per epoch: finite losses, selection rates in [0, 100] %, and the
-    epilogue launches: 3 forward a forward pass (a train step or a val
-    batch of ``batch`` clips), 3 backward a main-phase step, 0 in a policy
+    epilogue launches: ``per_pass`` (the ResNet's 3 stage boundaries; 0
+    without a ResNet) forward a forward pass (a train step or a val batch
+    of ``batch`` clips), as many backward a main-phase step, 0 in a policy
     epoch."""
     for i, e in enumerate(epochs):
         s, n = e["summary"], None
@@ -1275,10 +1294,10 @@ def _check_epochs(label, epochs, batch=8):
         if e["kind"] == "train":
             n = s["num_batch"]
             policy = any(e["cost"])
-            want = (3 * n, 0 if policy else 3 * n)
+            want = (per_pass * n, 0 if policy else per_pass * n)
         else:
             n = -(-len(s["outputs"]) // batch)
-            want = (3 * n, 0)
+            want = (per_pass * n, 0)
         got = (e["launches"][tp.KERNEL], e["launches"][tp.KERNEL_BWD])
         check(got == want, f"{label} {e['kind']} epoch {i} ({n} batches): "
               f"{got} (forward, backward) epilogue launches, expected {want}")
@@ -1399,18 +1418,10 @@ def cli_phase(dev, card: str) -> dict:
     return out
 
 
-def preprocess_phase(dev) -> None:
-    """One flagship synthetic training batch (8 clips, rgb 5 x 8 frames on
-    the 256x464 canvas, sound 5 x 1.28 s) through make_batch_preprocessor
-    on the card and on the CPU, float32 out (compute_dtype float32, TF32
-    off): each modality within 1e-3; plus the card's time for a batch."""
-    cfg = flagship_cfg()
-    cfg.model.compute_dtype = "float32"
-    cfg.data.dataset = "synthetic"
-    cfg.data.synthetic_length = cfg.optim.batch_size = 8
-    ds = cur._make_dataset(cfg, is_train=True,
-                           num_clips=cfg.model.num_segments)
-    batch = next(iter(cur._make_loader(cfg, ds, is_train=True)))
+def _preprocess_card_vs_cpu(dev, cfg, batch) -> dict:
+    """One host batch through make_batch_preprocessor on the card and on
+    the CPU, float32 out (TF32 off): each modality within 1e-3; plus the
+    card's time for the batch."""
     got = {}
     for d in (dev, torch.device("cpu")):
         pre = make_batch_preprocessor(
@@ -1430,13 +1441,255 @@ def preprocess_phase(dev) -> None:
             zip(cfg.model.modality, got["cuda"], got["cpu"])}
     check(all(e <= 1e-3 for e in errs.values()),
           f"preprocessing card vs CPU: {errs} > 1e-3")
-    emit("preprocess_card_vs_cpu", max_abs_diff=errs, tolerance=1e-3,
-         shapes={m: list(x.shape) for m, x in
-                 zip(cfg.model.modality, got["cpu"])},
-         card_ms_per_batch=card_ms,
-         timing="host clock over 5 calls after 1 warm-up, ending in "
-                "torch.cuda.synchronize(): host batch to inputs on the "
-                "card, pinned copy included")
+    return dict(max_abs_diff=errs, tolerance=1e-3,
+                shapes={m: list(x.shape) for m, x in
+                        zip(cfg.model.modality, got["cpu"])},
+                card_ms_per_batch=card_ms,
+                timing="host clock over 5 calls after 1 warm-up, ending in "
+                       "torch.cuda.synchronize(): host batch to inputs on "
+                       "the card, pinned copy included")
+
+
+def preprocess_phase(dev) -> None:
+    """One flagship synthetic training batch (8 clips, rgb 5 x 8 frames on
+    the 256x464 canvas, sound 5 x 1.28 s) through make_batch_preprocessor
+    on the card and on the CPU (float32, 1e-3)."""
+    cfg = flagship_cfg()
+    cfg.model.compute_dtype = "float32"
+    cfg.data.dataset = "synthetic"
+    cfg.data.synthetic_length = cfg.optim.batch_size = 8
+    ds = cur._make_dataset(cfg, is_train=True,
+                           num_clips=cfg.model.num_segments)
+    batch = next(iter(cur._make_loader(cfg, ds, is_train=True)))
+    emit("preprocess_card_vs_cpu", **_preprocess_card_vs_cpu(dev, cfg, batch))
+
+
+# the real-data recipe (README.md): unimodal pretraining on the tree, the
+# flagship curriculum from their checkpoints, then -e --pretrained
+REAL_UNIMODAL = {
+    "rgb": "--modality rgb --backbone_net resnet -d 50 --groups 8 -b 8 "
+           "--epochs 1 -j 8".split(),
+    "sound": "--modality sound -b 8 --epochs 1 -j 8".split()}
+
+
+class _GraftProbe:
+    """Keeps a CPU copy of the model right after each pretrained graft of
+    the curriculum (and the temperature after --pretrained). Measurement
+    only; the trainer calls the loaders as a user's run does."""
+
+    def __init__(self):
+        self.after = {}
+
+    def __enter__(self):
+        self._saved = (cur.load_unimodality_pretrained,
+                       cur.load_pretrained_adamml)
+        uni, whole = self._saved
+
+        def snapshot(name, load):
+            def run(model, *args, **kwargs):
+                out = load(model, *args, **kwargs)
+                self.after[name] = {k: v.detach().cpu().clone()
+                                    for k, v in model.state_dict().items()}
+                return out
+            return run
+
+        def whole_and_temperature(model, state, path):
+            out = snapshot("pretrained", whole)(model, state, path)
+            self.after["temperature"] = state.temperature
+            return out
+
+        cur.load_unimodality_pretrained = snapshot("unimodal", uni)
+        cur.load_pretrained_adamml = whole_and_temperature
+        return self
+
+    def __exit__(self, *exc):
+        cur.load_unimodality_pretrained, cur.load_pretrained_adamml = (
+            self._saved)
+
+
+def _expected_jpegs(argv, epochs, batch=8) -> int:
+    """The rgb frames a run decodes: per fetched sample (padded eval rows
+    included) groups x clips, clips = num_segments (train_adamml train),
+    val_num_clips (its validation), num_clips (train_unimodal)."""
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    if "rgb" not in cfg.model.modality:
+        return 0
+    adamml = len(cfg.model.modality) > 1
+    total = 0
+    for e in epochs:
+        if e["kind"] == "train":
+            clips = cfg.model.num_segments if adamml else cfg.data.num_clips
+            total += e["summary"]["num_batch"] * batch * clips
+        else:
+            clips = cfg.data.val_num_clips if adamml else cfg.data.num_clips
+            total += -(-len(e["summary"]["outputs"]) // batch) * batch * clips
+    return total * cfg.model.groups
+
+
+def _check_decoded(label, run, argv, decoder) -> dict:
+    want = _expected_jpegs(argv, run["probe"].epochs)
+    other = "pil" if decoder == "native" else "native"
+    check(run["decoded"][decoder] == want and run["decoded"][other] == 0,
+          f"{label}: decoded {run['decoded']}, expected {want} JPEGs, all "
+          f"through {decoder}")
+    return run["decoded"]
+
+
+def _check_equal(label, got: dict, want: dict, prefix="") -> int:
+    bad = [k for k, v in want.items() if not torch.equal(got[prefix + k], v)]
+    check(not bad, f"{label}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    return len(want)
+
+
+def real_data_phase(dev, card: str) -> dict:
+    """The paper's recipe on real files, as a user runs it, at full width
+    (README.md): a generated kinetics-sounds tree (16 videos of 64 JPEG
+    frames at 256x340, 24 kHz mono WAVs, one video without its WAV);
+    train_unimodal rgb (ResNet-50, 8 frames) and sound (MobileNetV2), one
+    epoch each; train_adamml with the flagship's flags through the 3-stage
+    curriculum with --unimodality_pretrained set to their checkpoints;
+    then train_adamml -e --pretrained with its model_best (its checkpoint
+    when no validation beat top-1 0). Checks every epoch's epilogue
+    launches, losses and selection rates, the grafts bit for bit, that
+    every JPEG went through the reported decoder, one real batch's
+    preprocessing on the card against the CPU, and both decoders against
+    each other where both load."""
+    decoder = "native" if native_available() else "pil"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = bench_pipeline.generate_tree(os.path.join(tmp, "tree"))
+        rgb, sound = (os.path.join(tree["root"], m) for m in ("rgb",
+                                                              "sound"))
+        import PIL
+        import scipy
+
+        emit("real_data", run="tree", card=card, decoder=decoder,
+             native_library="loads" if decoder == "native" else load_error(),
+             host=dict(python=sys.version.split()[0], pil=PIL.__version__,
+                       scipy=scipy.__version__, numpy=np.__version__,
+                       cores=os.cpu_count()), **tree)
+
+        # decode ms per frame on this host, each decoder that loads
+        rows = bench_pipeline.decode_threads(tree["root"], videos=4)
+        emit("real_data", run="decode", card=card, rows=rows,
+             timing="host clock, 256 frames into the 256x464 canvas")
+        ds = VideoDataset(rgb, "val.txt", num_groups=8, is_train=False,
+                          separator=";")
+        if decoder == "native":
+            ds_pil = VideoDataset(rgb, "val.txt", num_groups=8,
+                                  is_train=False, separator=";",
+                                  use_native_decoder=False)
+            idx = np.arange(1, tree["frames"] + 1)
+            a = ds.get_data(ds.video_list[0], idx)["frames"].astype(int)
+            b = ds_pil.get_data(ds.video_list[0], idx)["frames"].astype(int)
+            diff = int(np.abs(a - b).max())
+            check(diff <= 1, f"native vs PIL decode: {diff} LSB > 1")
+            emit("real_data", run="native_vs_pil", max_abs_diff=diff,
+                 tolerance=1)
+        snd = VideoDataset(sound, "val.txt", modality="sound", num_groups=8,
+                           is_train=False, separator=";")
+        valid = [float(snd.get_sample(i)[0]["valid"].min())
+                 for i in range(len(snd))]
+        check(valid.count(0.0) == tree["videos"] - tree["wavs"],
+              f"sound windows with valid=0: {valid}")
+
+        # one real batch through the device preprocessing, card vs CPU
+        cfg = config_from_args(arg_parser().parse_args(
+            ["--dataset", "kinetics-sounds", "--datadir", rgb, sound,
+             *FLAGSHIP_FLAGS]))
+        cfg.model.compute_dtype = "float32"
+        ds = cur._make_dataset(cfg, is_train=True,
+                               num_clips=cfg.model.num_segments)
+        batch = next(iter(cur._make_loader(cfg, ds, is_train=True)))
+        emit("real_data", run="preprocess_card_vs_cpu",
+             **_preprocess_card_vs_cpu(dev, cfg, batch))
+
+        # unimodal pretraining
+        ckpt = {}
+        for m, flags in REAL_UNIMODAL.items():
+            argv = ["--dataset", "kinetics-sounds", "--datadir",
+                    os.path.join(tree["root"], m), *flags]
+            logdir = os.path.join(tmp, f"uni_{m}")
+            run = _run_cli(train_unimodal.main, argv, logdir)
+            folder = os.path.join(logdir, os.listdir(logdir)[0])
+            ckpt[m] = os.path.join(folder, "checkpoint")
+            kinds = [e["kind"] for e in run["probe"].epochs]
+            check(kinds == ["train", "val"], f"unimodal {m} epochs {kinds}")
+            _check_epochs(f"train_unimodal {m}", run["probe"].epochs,
+                          per_pass=3 if m == "rgb" else 0)
+            label = f"train_unimodal_{m}"
+            out[label] = run["launches"]
+            emit("real_data", run=label, card=card, argv=argv,
+                 seconds=run["seconds"],
+                 epochs=[_epoch_line(e) for e in run["probe"].epochs],
+                 launches=run["launches"],
+                 decoded=_check_decoded(label, run, argv, decoder),
+                 max_memory_allocated_bytes=run["peak"],
+                 timing="host clock; each epoch and validation ends in "
+                        "torch.cuda.synchronize()")
+
+        # the curriculum from the unimodal checkpoints
+        argv = ["--dataset", "kinetics-sounds", "--datadir", rgb, sound,
+                *FLAGSHIP_FLAGS, "--unimodality_pretrained", ckpt["rgb"],
+                ckpt["sound"]]
+        logdir = os.path.join(tmp, "adamml")
+        with _GraftProbe() as graft:
+            run = _run_cli(train_adamml.main, argv, logdir)
+        grafted = 0
+        for m in ("rgb", "sound"):
+            want = torch.load(os.path.join(ckpt[m], "state.pt"),
+                              map_location="cpu", weights_only=True)["model"]
+            grafted += _check_equal(f"graft of {m}", graft.after["unimodal"],
+                                    want, prefix=f"main_net.net_{m}.")
+        lines = [msg for _, msg in run["probe"].lines]
+        seen = [b for b in BANNERS if any(x.startswith(b) for x in lines)]
+        check(seen == list(BANNERS), f"stage banners {seen}")
+        kinds = [(e["kind"], bool(any(e["cost"])))
+                 for e in run["probe"].epochs]
+        check(kinds == [("train", False), ("train", False), ("train", True),
+                        ("val", False), ("train", False), ("val", False)],
+              f"epochs {kinds}")
+        _check_epochs("train_adamml (real)", run["probe"].epochs)
+        folder = os.path.join(logdir, os.listdir(logdir)[0])
+        best = os.path.join(folder, "model_best")
+        source = best if os.path.isdir(best) else os.path.join(folder,
+                                                               "checkpoint")
+        out["train_adamml"] = run["launches"]
+        emit("real_data", run="train_adamml", card=card, argv=argv,
+             seconds=run["seconds"],
+             stage_seconds=_stage_seconds(run, BANNERS),
+             epochs=[_epoch_line(e) for e in run["probe"].epochs],
+             launches=run["launches"],
+             decoded=_check_decoded("train_adamml", run, argv, decoder),
+             grafted_tensors=grafted, model_best=source == best,
+             max_memory_allocated_bytes=run["peak"],
+             timing="host clock; each epoch and validation ends in "
+                    "torch.cuda.synchronize()")
+
+        # -e --pretrained
+        argv = ["--dataset", "kinetics-sounds", "--datadir", rgb, sound,
+                *FLAGSHIP_FLAGS, "-e", "--pretrained", source]
+        with _GraftProbe() as graft:
+            ev = _run_cli(train_adamml.main, argv,
+                          os.path.join(tmp, "evaluate"))
+        payload = torch.load(os.path.join(source, "state.pt"),
+                             map_location="cpu", weights_only=True)
+        n = _check_equal("--pretrained", graft.after["pretrained"],
+                         payload["model"])
+        check(graft.after["temperature"] == payload["temperature"],
+              f"--pretrained temperature {graft.after['temperature']} vs "
+              f"{payload['temperature']}")
+        _check_epochs("train_adamml -e --pretrained", ev["probe"].epochs)
+        out["train_adamml_evaluate"] = ev["launches"]
+        emit("real_data", run="train_adamml -e --pretrained", card=card,
+             source=os.path.basename(source), seconds=ev["seconds"],
+             epochs=[_epoch_line(e) for e in ev["probe"].epochs],
+             launches=ev["launches"],
+             decoded=_check_decoded("-e --pretrained", ev, argv, decoder),
+             grafted_tensors=n, temperature=payload["temperature"],
+             max_memory_allocated_bytes=ev["peak"])
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1483,6 +1736,7 @@ def main() -> int:
     ores = tools_phase(dev)
     preprocess_phase(dev)
     cres = cli_phase(dev, smi)
+    rres = real_data_phase(dev, smi)
 
     def bound_by(res):
         return "bytes" if res["bytes_s"] >= res["ops_s"] else "operations"
@@ -1507,7 +1761,12 @@ def main() -> int:
             "cli_train_adamml": cres["train_adamml"][tp.KERNEL],
             "cli_train_adamml_evaluate":
                 cres["train_adamml_evaluate"][tp.KERNEL],
-            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL]},
+            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL],
+            "real_data_train_unimodal_rgb":
+                rres["train_unimodal_rgb"][tp.KERNEL],
+            "real_data_train_adamml": rres["train_adamml"][tp.KERNEL],
+            "real_data_train_adamml_evaluate":
+                rres["train_adamml_evaluate"][tp.KERNEL]},
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip eval step; "
                 "launches are the serve path's (5 batches)"}, {
@@ -1526,7 +1785,10 @@ def main() -> int:
             "train_dw_main": tdw["main"][tp.KERNEL_BWD],
             "train_dw_policy": tdw["policy"][tp.KERNEL_BWD],
             "cli_train_adamml": cres["train_adamml"][tp.KERNEL_BWD],
-            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL_BWD]},
+            "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL_BWD],
+            "real_data_train_unimodal_rgb":
+                rres["train_unimodal_rgb"][tp.KERNEL_BWD],
+            "real_data_train_adamml": rres["train_adamml"][tp.KERNEL_BWD]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "

@@ -291,3 +291,124 @@ def test_train_unimodal_runs(tmp_path, modality, backbone):
     with pytest.raises(ValueError, match="exactly one --modality"):
         train_unimodal.main(argv + ["--modality", "rgb", "sound"],
                             device="cpu")
+
+
+# -- the recipe on real files: unimodal pretraining, the curriculum from the
+# unimodal checkpoints, then -e --pretrained --------------------------------
+
+def _recipe_flags(tree, *modalities):
+    return ["--dataset", "kinetics-sounds", "--datadir",
+            *[str(tree / m) for m in modalities], "--modality", *modalities]
+
+
+@pytest.fixture(scope="module")
+def recipe(tmp_path_factory):
+    """The paper's recipe through both CLIs on a generated JPEG/WAV tree
+    (8 videos of 16 frames at 48x64, one without a WAV): train_unimodal
+    for rgb and for sound, train_adamml --unimodality_pretrained with their
+    checkpoints, then train_adamml -e --pretrained with the curriculum's
+    model_best (its checkpoint when no validation beat top-1 0). The
+    model right after each graft is kept."""
+    from adamml_tpu_torch.tools.bench_pipeline import generate_tree
+
+    root = tmp_path_factory.mktemp("recipe")
+    tree = root / "tree"
+    generate_tree(str(tree), videos=8, frames=16, size=(48, 64))
+    tiny = ["-d", "18", "--groups", "4", "-b", "8", "--epochs", "1",
+            "--input_size", "32", "--audio_length", "0.16",
+            "--compute_dtype", "float32", "--scale_range", "36", "48",
+            "-j", "2", "--lr_scheduler", "multisteps", "--lr_steps", "1"]
+    uni = {}
+    for m in ("rgb", "sound"):
+        logdir = root / f"uni_{m}"
+        assert train_unimodal.main(_recipe_flags(tree, m) + tiny + [
+            "--logdir", str(logdir)], device="cpu") == 0
+        uni[m] = next(p for p in logdir.iterdir() if p.is_dir())
+    # TINY's curriculum on the tree instead of synthetic videos
+    adamml = _recipe_flags(tree, "rgb", "sound") + (
+        "-d 18 --groups 4 --num_segments 2 --dense_sampling "
+        "--val_num_clips 2 -b 8 --epochs 1 --warmup_epochs 1 "
+        "--finetune_epochs 1 --input_size 32 --audio_length 0.16 "
+        "--causality_modeling lstm --cost_weights 1.0 0.05 "
+        "--compute_dtype float32 --scale_range 36 48 -j 2 "
+        "--lr_scheduler multisteps --lr_steps 1 --seed 5").split()
+    grafts = {}
+
+    def keep(name, load):
+        def run(model, *args, **kwargs):
+            out = load(model, *args, **kwargs)
+            grafts[name] = {k: v.clone()
+                            for k, v in model.state_dict().items()}
+            return out
+        return run
+
+    logdir = root / "adamml"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cur, "load_unimodality_pretrained",
+                   keep("unimodal", cur.load_unimodality_pretrained))
+        mp.setattr(cur, "load_pretrained_adamml",
+                   keep("pretrained", cur.load_pretrained_adamml))
+        assert train_adamml.main(adamml + [
+            "--logdir", str(logdir), "--unimodality_pretrained",
+            str(uni["rgb"] / "checkpoint"),
+            str(uni["sound"] / "checkpoint")], device="cpu") == 0
+        folder = next(p for p in logdir.iterdir() if p.is_dir())
+        best = folder / "model_best"
+        source = best if best.exists() else folder / "checkpoint"
+        assert train_adamml.main(adamml + [
+            "--logdir", str(root / "eval"), "-e", "--pretrained",
+            str(source)], device="cpu") == 0
+    yield dict(tree=tree, uni=uni, folder=folder, source=source,
+               grafts=grafts, eval=next((root / "eval").iterdir()))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def test_recipe_unimodal_runs_on_real_files(recipe):
+    for m, folder in recipe["uni"].items():
+        assert folder.name.startswith(f"kinetics-sounds-{m}-")
+        assert {"checkpoint", "checkpoint_01", "log.log"} <= {
+            p.name for p in folder.iterdir()}
+        lines = (folder / "log.log").read_text().splitlines()
+        assert [line.split(":")[0] for line in lines
+                if line.startswith(("Train:", "Val:"))] == ["Train", "Val"]
+        assert not any("Loss: nan" in line for line in lines)
+
+
+def test_recipe_unimodal_graft_is_bit_equal(recipe):
+    """Right after the graft every tensor of main_net.net_rgb and
+    main_net.net_sound is the unimodal checkpoint's."""
+    model = recipe["grafts"]["unimodal"]
+    for m, folder in recipe["uni"].items():
+        sd = torch.load(folder / "checkpoint" / "state.pt",
+                        weights_only=True)["model"]
+        assert len(sd) > 100
+        for k, v in sd.items():
+            assert torch.equal(model[f"main_net.net_{m}.{k}"], v), k
+
+
+def test_recipe_curriculum_stages_and_artifacts(recipe):
+    lines = (recipe["folder"] / "log.log").read_text().splitlines()
+    at = [next(i for i, line in enumerate(lines) if line.startswith(b))
+          for b in BANNERS[:5]]
+    assert at == sorted(at)
+    assert sum(line.startswith("Train:") for line in lines) == 4
+    assert sum(line.startswith("Val:") for line in lines) == 2
+    assert not any("Loss: nan" in line for line in lines)
+    assert recipe["folder"].name.startswith("kinetics-sounds-rgb-sound-")
+    want = ARTIFACTS - {"model_best"}
+    assert want <= {p.name for p in recipe["folder"].iterdir()}
+
+
+def test_recipe_evaluate_with_pretrained(recipe, capsys):
+    """-e --pretrained: the model right after the graft is the
+    checkpoint's, tensor for tensor, at its temperature; -e wrote its
+    files over the 8 validation videos."""
+    payload = torch.load(recipe["source"] / "state.pt", weights_only=True)
+    model = recipe["grafts"]["pretrained"]
+    assert model.keys() == payload["model"].keys()
+    for k, v in payload["model"].items():
+        assert torch.equal(model[k], v), k
+    lines = (recipe["eval"] / "evaluate_log.log").read_text().splitlines()
+    assert any(line.startswith("Val:") for line in lines)
+    out = np.load(recipe["eval"] / "val_1crops_2clips_32_details_.npy")
+    assert out.shape == (8, 31) and np.isfinite(out).all()

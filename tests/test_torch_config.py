@@ -101,10 +101,7 @@ REJECTED = [
     (["--eval_capacity", "0.5"], "--eval_capacity"),
     (["--capacity_groups", "2"], "--capacity_groups"),
     (["--profile_dir", "/x"], "--profile_dir"),
-    (["--pretrained", "/x"], "--pretrained"),
-    (["--unimodality_pretrained", "/x", "/y"], "--unimodality_pretrained"),
     (["--pred_files", "a.npy"], "--pred_files"),
-    (["--dataset", "kinetics-sounds"], "--dataset"),
     (["--multiprocessing-distributed"], "--multiprocessing-distributed"),
     (["--gpu", "0,1"], "--gpu"),
 ]
@@ -116,6 +113,23 @@ def test_rejected_flags_name_themselves(argv, flag):
     args = parser.parse_args(["--dataset", "synthetic"] + argv)
     with pytest.raises(ValueError, match=flag):
         tconfig.validate_args(parser, args)
+
+
+# flags whose modules are ported since: accepted, and reaching the config
+PORTED = [
+    (["--pretrained", "/x"], lambda c: c.runtime.pretrained == "/x"),
+    (["--unimodality_pretrained", "/x", "/y"],
+     lambda c: c.runtime.unimodality_pretrained == ["/x", "/y"]),
+    (["--dataset", "kinetics-sounds", "--datadir", "/r", "/s"],
+     lambda c: c.data.dataset == "kinetics-sounds"
+     and c.data.datadir == ["/r", "/s"]),
+]
+
+
+@pytest.mark.parametrize("argv,holds", PORTED,
+                         ids=[a[0] for a, _ in PORTED])
+def test_ported_flags_are_accepted(argv, holds):
+    assert holds(_accepted(argv)[1])
 
 
 def _accepted(argv):
@@ -160,6 +174,15 @@ def test_main_without_device_needs_cuda(main, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--dataset", "synthetic", "--modality", "rgb",
               "--logdir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flag", ["--pretrained", "--unimodality_pretrained"])
+def test_train_unimodal_refuses_pretrained_flags(flag, tmp_path):
+    """Both graft into the AdaMML model: train_unimodal refuses them before
+    any work."""
+    with pytest.raises(ValueError, match="train_adamml takes them"):
+        tuni.main(["--dataset", "synthetic", "--modality", "rgb", flag,
+                   str(tmp_path), "--logdir", str(tmp_path)], device="cpu")
 
 
 def test_distributed_runs_are_rejected():

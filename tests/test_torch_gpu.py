@@ -624,3 +624,34 @@ def test_tiny_cli_on_card_matches_cpu(monkeypatch, tmp_path):
     assert all(np.isfinite(losses["cuda"]))
     assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-3 * abs(
         losses["cpu"][0])
+
+
+def test_native_and_pil_decode_on_the_card_host(tmp_path):
+    """One generated video (8 frames at 256x340) through both decoders of
+    the card's host: every frame counted under its decoder, the geometry
+    equal, the pixels within 1 LSB (IDCT rounding). Skips, naming the
+    reason, where the native library does not load."""
+    _need_card()
+    from adamml_tpu_torch.data import loaders
+    from adamml_tpu_torch.data.native_decode import (load_error,
+                                                     native_available)
+    from adamml_tpu_torch.data.video_dataset import VideoDataset
+    from adamml_tpu_torch.tools.bench_pipeline import generate_tree
+
+    generate_tree(str(tmp_path), videos=1, frames=8)
+    if not native_available():
+        pytest.skip(f"the native decoder does not load: {load_error()}")
+    out = {}
+    for native in (True, False):
+        ds = VideoDataset(str(tmp_path / "rgb"), "val.txt", num_groups=8,
+                          is_train=False, separator=";",
+                          use_native_decoder=native)
+        before = dict(loaders.decode_counts)
+        out[native] = ds.get_data(ds.video_list[0], np.arange(1, 9))
+        counted = {k: loaders.decode_counts[k] - before[k] for k in before}
+        assert counted == ({"native": 8, "pil": 0} if native
+                           else {"native": 0, "pil": 8})
+    np.testing.assert_array_equal(out[True]["hw"], [256, 340])
+    np.testing.assert_array_equal(out[False]["hw"], [256, 340])
+    diff = out[True]["frames"].astype(int) - out[False]["frames"].astype(int)
+    assert np.abs(diff).max() <= 1
