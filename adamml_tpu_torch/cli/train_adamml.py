@@ -60,12 +60,51 @@ def init_distributed(cfg) -> None:
                          "ported to the CUDA port yet (ROADMAP A.16)")
 
 
+def val_labels(cfg):
+    """Ground-truth labels of the val set in list order -- the row order of
+    the val_*.npy artifacts written by -e."""
+    import numpy as np
+
+    from ..data.dataflow import HostDataLoader
+    from ..train.curriculum import _make_dataset
+
+    ds = _make_dataset(cfg, is_train=False, num_clips=cfg.data.val_num_clips)
+    if hasattr(ds, "children"):  # MultiVideoDataset
+        c = ds.children[0]
+        return np.asarray([c.get_label(r) for r in ds.video_list])
+    # synthetic: labels come from the per-sample rng; reproduce the loader's
+    # (seed, epoch=0, index) keying
+    ld = HostDataLoader(ds, 1, is_train=False, workers=1,
+                        seed=cfg.runtime.seed)
+    return np.asarray([ds.get_sample(i, ld._sample_rng(i))[1]
+                       for i in range(len(ds))])
+
+
+def run_ensemble_scoring(cfg) -> int:
+    """--pred_files offline ensemble scoring (reference opts.py:123-127 --
+    the reference defines but never consumes these flags; here they score
+    saved eval artifacts against the val list). Host work only."""
+    from ..utils.ensemble import ensemble_score
+
+    r = cfg.runtime
+    out = ensemble_score(r.pred_files, val_labels(cfg),
+                         pred_weights=r.pred_weights,
+                         after_softmax=r.after_softmax)
+    print(f"Ensemble of {len(r.pred_files)} prediction file(s)"
+          f"{' (after softmax)' if r.after_softmax else ''}:\t"
+          f"Top@1: {out['top1']:.4f}\tTop@5: {out['top5']:.4f}\t"
+          f"mAP: {out['mAP']:.4f}", flush=True)
+    return 0
+
+
 def main(argv=None, device=None) -> int:
     parser = arg_parser()
     args = parser.parse_args(argv)
     validate_args(parser, args)
     cfg = config_from_args(args)
     cfg.model.backbone_net = "adamml"
+    if cfg.runtime.pred_files:
+        return run_ensemble_scoring(cfg)
     init_distributed(cfg)
 
     from ..train.curriculum import AdaMMLTrainer
@@ -73,9 +112,10 @@ def main(argv=None, device=None) -> int:
     trainer = AdaMMLTrainer(cfg, cuda_device(args) if device is None
                             else device)
     if cfg.runtime.show_model:
+        from ..models.model_builder import count_params_flops_summary
+
         print(trainer.model)
-        n = sum(p.numel() for p in trainer.model.parameters())
-        print(f"Total params: {n / 1e6:.2f}M")
+        print(count_params_flops_summary(trainer.model, cfg))
         return 0
     if cfg.runtime.evaluate:
         from ..utils.logging import RankZeroLogger

@@ -44,9 +44,10 @@ def main(argv=None, device=None) -> int:
     trainer = UnimodalTrainer(cfg, cuda_device(args) if device is None
                               else device)
     if cfg.runtime.show_model:
+        from ..models.model_builder import count_params_flops_summary
+
         print(trainer.model)
-        n = sum(p.numel() for p in trainer.model.parameters())
-        print(f"Total params: {n / 1e6:.2f}M")
+        print(count_params_flops_summary(trainer.model, cfg))
         return 0
     trainer.run()
     return 0

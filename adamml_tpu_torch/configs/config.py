@@ -71,7 +71,7 @@ class ModelConfig:
     num_classes: int = 31
     # policy-stream resolution (reference models/adamml.py:42 p_rgb_size)
     policy_input_size: int = 160
-    # eval-only conditional compute; not ported yet (models/joint_net.py)
+    # eval-only conditional compute (models/joint_net.py)
     eval_capacity: Optional[float] = None
     capacity_groups: Optional[int] = None
     # every 3x3 depthwise layer through the hand-written depthwise kernel
@@ -290,9 +290,11 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--gammas", default=10.0, type=float)
     p.add_argument("--penalty_type", default="blockdrop", choices=["mean", "blockdrop"])
     p.add_argument("--eval_capacity", default=None, type=float,
-                   help="not ported yet: rejected")
+                   help="eval-only conditional compute: the fraction of "
+                        "rows per modality whose backbone runs")
     p.add_argument("--capacity_groups", default=None, type=int,
-                   help="not ported yet: rejected")
+                   help="pin the eval_capacity packing-group count "
+                        "(default: one group on one card)")
     p.add_argument("--use_pallas_dw", action="store_true",
                    help="every 3x3 depthwise layer through the hand-written "
                         "CUDA depthwise kernel")
@@ -341,7 +343,8 @@ def arg_parser() -> argparse.ArgumentParser:
                         "per tensor) instead of the multi-tensor foreach "
                         "update")
     p.add_argument("--steps_per_dispatch", default=1, type=int,
-                   help="only 1 on a CUDA card")
+                   help="K real optimizer steps per dispatch (on a CUDA "
+                        "card one replayed CUDA graph)")
 
     # data
     p.add_argument("-j", "--workers", default=18, type=int)
@@ -380,7 +383,8 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_clips", default=1, type=int)
     p.add_argument("--val_num_clips", default=10, type=int)
     p.add_argument("--pred_files", type=str, nargs="+", default=[],
-                   help="not ported yet: rejected")
+                   help="score saved val_*.npy logits (an ensemble) against "
+                        "the val list instead of training")
     p.add_argument("--pred_weights", type=float, nargs="+", default=None)
     p.add_argument("--after_softmax", action="store_true")
     p.add_argument("--lazy_eval", action="store_true")
@@ -409,7 +413,8 @@ def arg_parser() -> argparse.ArgumentParser:
                    help="only 1 on one card")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--profile_dir", default="", type=str,
-                   help="not ported yet: rejected")
+                   help="write a torch.profiler trace of steps 2-4 of each "
+                        "curriculum pass's first epoch here")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     return p
@@ -422,17 +427,6 @@ _REJECTED = (
      "one card runs one data shard (multi-process runs are ROADMAP A.16)"),
     ("--mesh_model", lambda a: a.mesh_model > 1,
      "one card holds the whole model"),
-    ("--steps_per_dispatch", lambda a: a.steps_per_dispatch > 1,
-     "the scanned multi-step program (make_adamml_multi_step) is not "
-     "ported"),
-    ("--eval_capacity", lambda a: a.eval_capacity is not None,
-     "eval-capacity conditional compute is not ported yet (ROADMAP A.17)"),
-    ("--capacity_groups", lambda a: a.capacity_groups is not None,
-     "eval-capacity conditional compute is not ported yet (ROADMAP A.17)"),
-    ("--profile_dir", lambda a: bool(a.profile_dir),
-     "step profiling is not ported yet (ROADMAP A.15)"),
-    ("--pred_files", lambda a: bool(a.pred_files),
-     "ensemble scoring is not ported yet (ROADMAP A.15)"),
     ("--multiprocessing-distributed",
      lambda a: a.multiprocessing_distributed,
      "multi-process runs are not ported yet (ROADMAP A.16)"),

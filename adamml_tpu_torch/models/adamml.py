@@ -46,6 +46,7 @@ class AdaMML(nn.Module):
                  rng_policy: bool = False, rng_threshold: float = 0.5,
                  policy_input_size: int = 160,
                  eval_capacity: Optional[float] = None,
+                 capacity_groups: int = 1,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
                  remat_policy: bool = True,
@@ -66,7 +67,8 @@ class AdaMML(nn.Module):
             without_t_stride=without_t_stride, pooling_method=pooling_method,
             fusion_point=fusion_point,
             learnable_lf_weights=learnable_lf_weights,
-            eval_capacity=eval_capacity, use_pallas_dw=use_pallas_dw,
+            eval_capacity=eval_capacity, capacity_groups=capacity_groups,
+            use_pallas_dw=use_pallas_dw,
             fused_tpool=fused_tpool, remat=remat, remat_stages=remat_stages,
             dtype=dtype)
 

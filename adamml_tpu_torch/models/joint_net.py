@@ -6,6 +6,13 @@ sum) or at ``fc2`` (feature concat -> 2-layer MLP -> classifier, no decision
 support). The learnable late-fusion weight is a length M-1 parameter
 initialized to 1/M whose complement makes the weights sum to 1 (reference
 joint_resnet_mobilenetv2.py:60-64,115-125).
+
+``eval_capacity`` below 1 is eval-only conditional compute: per modality,
+the rows the decisions select are packed into ``cap`` rows of each of
+``capacity_groups`` contiguous blocks, the backbone runs on those rows
+only, and their logits scatter back (the rows that did not run give 0;
+a selection beyond ``cap`` in a block degrades to decision 0). The
+reference only models the saving (reference models/adamml.py:82-86).
 """
 
 from __future__ import annotations
@@ -35,18 +42,17 @@ class JointMainNet(nn.Module):
                  fusion_point: str = "logits",
                  learnable_lf_weights: bool = False,
                  eval_capacity: Optional[float] = None,
+                 capacity_groups: int = 1,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if eval_capacity is not None and eval_capacity < 1.0:
-            raise NotImplementedError(
-                "eval_capacity packing (adamml_tpu/models/joint_net.py:89-123)"
-                " waits for its own slice of the port")
         if fusion_point not in ("logits", "fc2"):
             raise ValueError(f"unknown fusion_point {fusion_point!r}")
         self.modality = tuple(modality)
         self.fusion_point = fusion_point
+        self.eval_capacity = eval_capacity
+        self.capacity_groups = capacity_groups
         self.dropout = dropout
         self.dtype = dtype
         logits_head = fusion_point == "logits"
@@ -90,14 +96,21 @@ class JointMainNet(nn.Module):
                 m_x[i], train, features=features, seq_groups=seq_groups,
                 generator=generator)
 
+        use_packing = (self.eval_capacity is not None and not train
+                       and decisions is not None
+                       and self.fusion_point == "logits"
+                       and self.eval_capacity < 1.0)
         if self.fusion_point == "logits":
             outs = []
             for i, m in enumerate(self.modality):
-                logit = run(i)  # (B, K)
-                if decisions is not None:
-                    # mask at logits; backbones always run (reference
-                    # joint_resnet_mobilenetv2.py:92-94)
-                    logit = logit * decisions[i][:, None]
+                if use_packing:
+                    logit = self._packed(i, m_x[i], decisions[i])
+                else:
+                    logit = run(i)  # (B, K)
+                    if decisions is not None:
+                        # mask at logits; backbones always run (reference
+                        # joint_resnet_mobilenetv2.py:92-94)
+                        logit = logit * decisions[i][:, None]
                 outs.append(logit)
             out = torch.stack(outs, dim=0)  # (M, B, K)
             if self.lf_weights is not None:
@@ -120,3 +133,33 @@ class JointMainNet(nn.Module):
         out = torch.relu(self.joint_fc2(out))
         out = dropout(out, self.dropout, train, generator)
         return self.fc(out).float()
+
+    def _packed(self, i: int, x: torch.Tensor, dec: torch.Tensor
+                ) -> torch.Tensor:
+        """Modality ``i``'s decision-masked logits (B, K) with its backbone
+        run on ``cap`` rows of each of G blocks (G = capacity_groups when it
+        divides B, else 1; cap = max(1, round(c * B / G))): a stable
+        descending argsort of each block's decisions puts the selected rows
+        first, ties in index order; the first cap rows run, their logits
+        times their decisions scatter back through the inverse permutation,
+        and the other rows get 0."""
+        b = x.shape[0]
+        g = (self.capacity_groups if self.capacity_groups > 1
+             and b % self.capacity_groups == 0 else 1)
+        bl = b // g
+        cap = max(1, int(round(self.eval_capacity * bl)))
+        dec = dec.reshape(g, bl)
+        order = torch.argsort(-dec, dim=1, stable=True)
+        idx = order[:, :cap]                                   # (G, cap)
+        rows = torch.arange(g, device=x.device)[:, None]
+        xp = x.reshape((g, bl) + tuple(x.shape[1:]))[rows, idx]
+        # eval-mode BN reads no batch moments: the packed rows form no
+        # segment cycles (seq_groups 1)
+        lp = getattr(self, f"net_{self.modality[i]}")(
+            xp.reshape((g * cap,) + tuple(x.shape[1:])), False)
+        k = lp.shape[-1]
+        lp = lp.reshape(g, cap, k) * torch.gather(dec, 1, idx)[..., None]
+        lp_sorted = torch.cat([lp, lp.new_zeros((g, bl - cap, k))], dim=1)
+        inv = torch.argsort(order, dim=1)
+        return torch.gather(lp_sorted, 1,
+                            inv[..., None].expand(g, bl, k)).reshape(b, k)

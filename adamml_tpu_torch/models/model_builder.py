@@ -30,6 +30,21 @@ def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
             else torch.float32)
 
 
+def _capacity_groups(cfg: ExperimentConfig) -> int:
+    """Packing-group count for eval_capacity (models/joint_net.py): one
+    group per data shard, which is one on one card, unless
+    --capacity_groups pins it, so capacity-eval accuracy does not depend on
+    the device count. The engine's capacity-drop count uses this same
+    resolver (train/engine.py validate)."""
+    if cfg.model.capacity_groups is not None:
+        if cfg.model.capacity_groups < 1:
+            raise ValueError(
+                f"--capacity_groups must be >= 1, got "
+                f"{cfg.model.capacity_groups}")
+        return cfg.model.capacity_groups
+    return 1
+
+
 def build_model(cfg: ExperimentConfig, device: Device = None
                 ) -> Tuple[nn.Module, str]:
     """(model on ``device``, arch name). Weights are random from
@@ -47,7 +62,9 @@ def build_model(cfg: ExperimentConfig, device: Device = None
             causality_modeling=m.causality_modeling, rng_policy=m.rng_policy,
             rng_threshold=m.rng_threshold,
             policy_input_size=m.policy_input_size,
-            eval_capacity=m.eval_capacity, use_pallas_dw=m.use_pallas_dw,
+            eval_capacity=m.eval_capacity,
+            capacity_groups=_capacity_groups(cfg),
+            use_pallas_dw=m.use_pallas_dw,
             fused_tpool=m.fused_tpool, remat=m.remat_backbone,
             remat_stages=m.remat_stages, remat_policy=m.remat_policy,
             dtype=dtype)
@@ -66,6 +83,32 @@ def build_model(cfg: ExperimentConfig, device: Device = None
         raise ValueError(f"unknown backbone_net {m.backbone_net!r}")
     init_model(model, cfg.runtime.seed)
     return model.to(dev), arch_name(cfg)
+
+
+def count_params_flops_summary(model: nn.Module, cfg: ExperimentConfig
+                               ) -> str:
+    """Params and the eval forward's GFLOPs at batch 1 (utils/flops.py's
+    ``count_model_flops``), replacing the reference's torchsummary text
+    (reference train_unimodal.py:127-134, utils/utils.py:98-108)."""
+    from ..utils.flops import count_model_flops
+
+    n_params = sum(p.numel() for p in model.parameters())
+    dev = next(model.parameters()).device
+    try:
+        inputs = example_inputs(cfg, batch=1, device=dev)
+        if cfg.model.backbone_net != "adamml":
+            x = inputs[0]  # (N, S, F, ...) -> (N, S*F, ...)
+            x = x.reshape((x.shape[0], x.shape[1] * x.shape[2])
+                          + tuple(x.shape[3:]))
+            flops = count_model_flops(model, x, train=False)
+        else:
+            flops = count_model_flops(
+                model, inputs, train=False,
+                generator=torch.Generator(device=dev).manual_seed(0))
+        flops_str = f"Total flops: {flops / 1e9:.3f} GFLOPs (fwd, batch 1)"
+    except Exception as e:  # the count is best-effort, as in the JAX CLI
+        flops_str = f"Total flops: unavailable ({e})"
+    return f"Total params: {n_params / 1e6:.3f}M\n{flops_str}"
 
 
 @torch.no_grad()

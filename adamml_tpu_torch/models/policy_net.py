@@ -109,7 +109,10 @@ class PolicyNet(nn.Module):
         joint = torch.relu(self.joint_fc1(joint))
         joint = torch.relu(self.joint_fc2(joint))
         outs = joint.reshape(n, s, JOINT_DIM)
-        tau = float(temperature)
+        # a tensor temperature stays on the device (a captured step reads
+        # it at replay, train/steps.py); a number divides as before
+        tau = (temperature if isinstance(temperature, torch.Tensor)
+               else float(temperature))
 
         if self.causality_modeling is None:
             flat = outs.reshape(n * s, JOINT_DIM)

@@ -43,15 +43,16 @@ from ..data.device_pipeline import (make_batch_preprocessor,
 from ..data.synthetic import SyntheticVideoDataset
 from ..data.video_dataset import MultiVideoDataset
 from ..models.adamml import INIT_TEMPERATURE, TEMPERATURE_DECAY
-from ..models.model_builder import build_model
+from ..models.model_builder import _capacity_groups, build_model
 from ..utils.device import resolve_device
 from ..utils.logging import RankZeroLogger
+from ..utils.profiling import StepProfiler
 from .engine import train_epoch, validate
 from .optim import build_optimizer
 from .schedulers import ReduceLROnPlateau, lr_at_epoch
-from .steps import (make_adamml_eval_step, make_adamml_train_step,
-                    make_unimodal_eval_step, make_unimodal_train_step,
-                    step_seed)
+from .steps import (make_adamml_eval_step, make_adamml_multi_step,
+                    make_adamml_train_step, make_unimodal_eval_step,
+                    make_unimodal_train_step, step_seed)
 from .train_state import StageFlags, TrainState
 
 Device = Optional[Union[str, torch.device]]
@@ -172,6 +173,15 @@ class AdaMMLTrainer:
             self.model, flags=StageFlags.policy_phase(), **common)
         self.eval_step = make_adamml_eval_step(
             self.model, num_crops=cfg.data.num_crops)
+        # K steps a dispatch (--steps_per_dispatch): on the card one
+        # replayed CUDA graph (steps.make_adamml_multi_step)
+        self.steps_per_dispatch = max(1, cfg.optim.steps_per_dispatch)
+        self.multi_main = self.multi_policy = None
+        if self.steps_per_dispatch > 1:
+            self.multi_main = make_adamml_multi_step(
+                self.model, flags=StageFlags.main_phase(), **common)
+            self.multi_policy = make_adamml_multi_step(
+                self.model, flags=StageFlags.policy_phase(), **common)
 
         self.best_top1 = 0.0
         self.curr_stage = cfg.optim.curr_stage
@@ -248,22 +258,35 @@ class AdaMMLTrainer:
         passes 0 because the reference never steps its schedulers during
         warmup (train_adamml.py:340-395), so warmup runs at the base LR."""
         sub = self._next_seed()
+        profiler = None
+        if self.cfg.runtime.profile_dir and epoch == 0:
+            profiler = StepProfiler(self.cfg.runtime.profile_dir)
+        multi_fn = (self.multi_main if step_fn is self.step_main
+                    else self.multi_policy)
         sched_epoch = epoch if lr_epoch is None else lr_epoch
-        self.state, summary = train_epoch(
-            self.train_loader, self.train_pre, step_fn, self.state,
-            lr=self._lr(sched_epoch, self.cfg.optim.lr, self.plateau),
-            p_lr=self._lr(sched_epoch, self.cfg.optim.p_lr, self.p_plateau),
-            cost_weights=cost_weights, seed=sub, epoch=epoch,
-            modality=self.modality, adamml=True,
-            display=self.cfg.runtime.print_freq, rank=self.rank,
-            logger=logger)
+        try:
+            self.state, summary = train_epoch(
+                self.train_loader, self.train_pre, step_fn, self.state,
+                lr=self._lr(sched_epoch, self.cfg.optim.lr, self.plateau),
+                p_lr=self._lr(sched_epoch, self.cfg.optim.p_lr,
+                              self.p_plateau),
+                cost_weights=cost_weights, seed=sub, epoch=epoch,
+                modality=self.modality, adamml=True,
+                display=self.cfg.runtime.print_freq, rank=self.rank,
+                logger=logger, profiler=profiler, multi_step_fn=multi_fn,
+                steps_per_dispatch=self.steps_per_dispatch)
+        finally:
+            if profiler is not None:
+                profiler.close()
         return summary
 
     def _validate(self):
         return validate(self.val_loader, self.val_pre, self.eval_step,
                         self.state, seed=self._next_seed(),
                         modality=self.modality, adamml=True,
-                        num_segments=self.cfg.data.val_num_clips)
+                        num_segments=self.cfg.data.val_num_clips,
+                        eval_capacity=self.cfg.model.eval_capacity,
+                        capacity_groups=_capacity_groups(self.cfg))
 
     def _log_train(self, logger, epoch, total, s):
         sel = " ".join(f"{k}:{v * 100:.2f}" for k, v in s["selection"].items())
@@ -284,6 +307,11 @@ class AdaMMLTrainer:
             f"mAP: {v['mAP']:.4f}\t"
             f"Speed: {v['batch_time'] * 1000.0:.2f} ms/batch\t"
             f"flops: {v['flops']:.2f}\tSelection: {sel}")
+        dropped = v.get("capacity_dropped")
+        if dropped and any(dropped.values()):
+            drops = " ".join(f"{k}:{n}" for k, n in dropped.items())
+            logger.log(f"WARNING: eval_capacity packing dropped selected "
+                       f"segments (executed < modeled): {drops}")
 
     def _dump_selections(self, tag: str, epoch: int, selections) -> None:
         os.makedirs(self.log_folder, exist_ok=True)
@@ -408,6 +436,12 @@ class UnimodalTrainer:
 
     def __init__(self, cfg: ExperimentConfig, device: Device = None) -> None:
         self.cfg = cfg
+        if cfg.optim.steps_per_dispatch > 1:
+            # fail loudly instead of ignoring the flag (the multi-step
+            # dispatch is wired into AdaMMLTrainer only)
+            raise ValueError(
+                "--steps_per_dispatch > 1 is not supported by "
+                "train_unimodal; it applies to the AdaMML trainer only")
         self.device = resolve_device(device)
         self.model, self.arch_name = build_model(cfg, self.device)
         self.log_folder = os.path.join(cfg.runtime.logdir or "logs",

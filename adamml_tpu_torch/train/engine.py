@@ -44,19 +44,17 @@ def _host_cross_entropy(logits: np.ndarray, targets: np.ndarray) -> float:
 
 
 def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Device tensors to numpy with one transfer: concatenated along the
-    first axis (0-d tensors as rows) and split back."""
+    """Device tensors to numpy with one transfer: flattened, concatenated
+    and split back to their shapes."""
     if not tensors:
         return []
-    rows = [t.reshape((1,) + tuple(t.shape)) if t.dim() == 0 else t
-            for t in tensors]
-    flat = torch.cat([r.detach().float() if r.dtype == torch.bfloat16
-                      else r.detach() for r in rows]).cpu().numpy()
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      if t.dtype == torch.bfloat16 else t.detach().reshape(-1)
+                      for t in tensors]).cpu().numpy()
     out, at = [], 0
-    for t, r in zip(tensors, rows):
-        piece = flat[at:at + r.shape[0]]
-        out.append(piece[0] if t.dim() == 0 else piece)
-        at += r.shape[0]
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
     return out
 
 
@@ -66,11 +64,19 @@ def train_epoch(loader, preprocess: Callable, step_fn: Callable, state,
                 seed: int = 0, epoch: int = 0,
                 modality: Optional[Sequence[str]] = None,
                 adamml: bool = True, display: int = 100, rank: int = 0,
-                logger=None):
+                logger=None, profiler=None,
+                multi_step_fn: Optional[Callable] = None,
+                steps_per_dispatch: int = 1):
     """One training epoch. Returns (state, summary dict). ``step_fn`` is
     step(state, inputs, target, lr, p_lr, cost_weights, seed) (AdaMML) or
     step(state, inputs, target, lr, seed) (unimodal) returning device
-    metrics; it updates ``state`` in place."""
+    metrics; it updates ``state`` in place.
+
+    With ``multi_step_fn`` (steps.make_adamml_multi_step) and
+    ``steps_per_dispatch`` K > 1, each batch is preprocessed on its own,
+    K of them are stacked and dispatched as K real steps in one call; an
+    epoch tail of fewer than K batches goes through ``step_fn``.
+    ``profiler`` (utils/profiling.StepProfiler) sees every loader index."""
     batch_time, data_time = AverageMeter(), AverageMeter()
     losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
     modality = list(modality or [])
@@ -79,27 +85,33 @@ def train_epoch(loader, preprocess: Callable, step_fn: Callable, state,
     cw = list(cost_weights if cost_weights is not None
               else [0.0] * max(1, len(modality)))
 
-    pending = []  # (batch size, device metrics)
+    pending = []  # (batch size, device metrics, K: the metrics' steps)
     end = time.time()
+    data_mark = end  # per loader index; `end` marks dispatches
     epoch_t0 = end
     num_batch = 0
-    next_log = 0  # step count at which the next display line is due
+    next_log = 0  # dispatched-step count at which the next line is due
 
     def drain():
         keys = ["loss", "top1", "top5"] + (
             ["selection"] if adamml and modality else [])
-        got = _fetch([dm[k] for _, dm in pending for k in keys])
-        for j, (bn, _) in enumerate(pending):
+        got = _fetch([dm[k] for _, dm, _ in pending for k in keys])
+        for j, (bn, _, k) in enumerate(pending):
             vals = dict(zip(keys, got[j * len(keys):(j + 1) * len(keys)]))
-            losses.update(float(vals["loss"]), bn)
-            top1.update(float(vals["top1"]), bn)
-            top5.update(float(vals["top5"]), bn)
-            if "selection" in vals:
-                for mi, m in enumerate(modality):
-                    selection[m].update(float(vals["selection"][mi]))
+            for s in range(k):
+                pick = ((lambda a: a[s]) if k > 1 else (lambda a: a))
+                losses.update(float(pick(vals["loss"])), bn)
+                top1.update(float(pick(vals["top1"])), bn)
+                top5.update(float(pick(vals["top5"])), bn)
+                if "selection" in vals:
+                    sel = pick(vals["selection"])
+                    for mi, m in enumerate(modality):
+                        selection[m].update(float(sel[mi]))
         pending.clear()
 
     def maybe_log(i):
+        # the cadence follows the count of dispatched steps, not the loader
+        # index: with K > 1 a dispatch lands on i = K-1 (mod K)
         nonlocal next_log
         if num_batch < next_log or rank != 0 or logger is None:
             return
@@ -120,19 +132,55 @@ def train_epoch(loader, preprocess: Callable, step_fn: Callable, state,
             f"Prec@5 {top5.val:.3f} ({top5.avg:.3f})\t"
             + (f"Selection: {sel_msg}" if sel_msg else ""))
 
+    use_multi = (adamml and multi_step_fn is not None
+                 and steps_per_dispatch > 1)
+    acc = []  # preprocessed (inputs, target) awaiting a full dispatch
+
+    def flush():
+        nonlocal num_batch, end
+        if not acc:
+            return
+        if len(acc) == steps_per_dispatch:
+            stacked = [torch.stack([a[0][mi] for a in acc])
+                       for mi in range(len(acc[0][0]))]
+            targets = torch.stack([a[1] for a in acc])
+            metrics = multi_step_fn(state, stacked, targets, lr, p_lr, cw,
+                                    seed)
+            pending.append((int(acc[0][1].shape[0]), metrics, len(acc)))
+        else:  # the epoch's tail: single steps
+            for inputs, target in acc:
+                metrics = step_fn(state, inputs, target, lr, p_lr, cw, seed)
+                pending.append((int(target.shape[0]), metrics, 1))
+        num_batch += len(acc)
+        dt = (time.time() - end) / len(acc)
+        for _ in acc:
+            batch_time.update(dt)
+        acc.clear()
+        end = time.time()
+
     for i, host_batch in enumerate(loader):
-        data_time.update(time.time() - end)
+        data_time.update(time.time() - data_mark)
+        if profiler is not None:
+            profiler.step(i)
         inputs, target = preprocess(host_batch)
+        if use_multi:
+            acc.append((inputs, target))
+            if len(acc) == steps_per_dispatch:
+                flush()
+                maybe_log(i)
+            data_mark = time.time()
+            continue
         n = int(target.shape[0])
         if adamml:
             metrics = step_fn(state, inputs, target, lr, p_lr, cw, seed)
         else:
             metrics = step_fn(state, inputs, target, lr, seed)
-        pending.append((n, metrics))
+        pending.append((n, metrics, 1))
         batch_time.update(time.time() - end)
-        end = time.time()
+        end = data_mark = time.time()
         num_batch += 1
         maybe_log(i)
+    flush()
     drain()
 
     # wall_time is the drained per-batch time (dispatch + device completion
@@ -145,12 +193,40 @@ def train_epoch(loader, preprocess: Callable, step_fn: Callable, state,
     return state, summary
 
 
+def capacity_dropped(selections: Sequence[np.ndarray], num_modality: int,
+                     eval_capacity: float, capacity_groups: int
+                     ) -> np.ndarray:
+    """(M,) selected segments that eval-capacity packing did not run: per
+    batch of raw (n, S, M) decisions, the blocks and the ``cap`` formula of
+    models/joint_net.py (G contiguous blocks of the clip-major n*S rows,
+    G = capacity_groups when it divides them, else 1; cap = max(1,
+    round(c * rows per block))), and per block and modality the selections
+    beyond cap. Exact for one crop; under multi-crop eval the stored
+    decisions are the canonical crop's, so the count is that crop's."""
+    dropped = np.zeros((num_modality,), np.int64)
+    for dec in selections:
+        rows = dec.shape[0] * dec.shape[1]
+        if rows == 0:
+            continue
+        g = (capacity_groups if capacity_groups > 1
+             and rows % capacity_groups == 0 else 1)
+        rl = rows // g
+        cap = max(1, int(round(eval_capacity * rl)))
+        picked = np.asarray(dec).reshape(g, rl, -1).sum(axis=1)  # (G, M)
+        dropped += np.maximum(0, picked - cap).sum(axis=0).astype(np.int64)
+    return dropped
+
+
 def validate(loader, preprocess: Callable, eval_step: Callable, state,
              *, seed: int = 1, modality: Optional[Sequence[str]] = None,
-             adamml: bool = True, num_segments: int = 10):
+             adamml: bool = True, num_segments: int = 10,
+             eval_capacity: Optional[float] = None,
+             capacity_groups: int = 1):
     """Full validation pass. Returns a summary dict including the gathered
     outputs / selections (reference validate_adamml contract,
-    utils/utils.py:427-507)."""
+    utils/utils.py:427-507) and, with ``eval_capacity`` below 1, the
+    selected segments that packing did not run (``capacity_dropped``, per
+    modality)."""
     batch_time, losses = AverageMeter(), AverageMeter()
     modality = list(modality or [])
     selection = {m: AverageMeter() for m in modality}
@@ -182,6 +258,14 @@ def validate(loader, preprocess: Callable, eval_step: Callable, state,
     all_targets = _fetch(dev_targets)
     all_selections = _fetch(dev_selections)
     batch_losses = _fetch(dev_losses)
+
+    dropped = None
+    if (adamml and eval_capacity is not None and eval_capacity < 1.0
+            and all_selections):
+        # counted on the raw decisions, padded tail rows included: the
+        # model packs the rows it was given
+        dropped = capacity_dropped(all_selections, len(modality),
+                                   eval_capacity, capacity_groups)
 
     # Padded-tail masking: the loader pads the ragged final batch with
     # wrapped real samples so every eval batch has one shape; those rows
@@ -242,4 +326,7 @@ def validate(loader, preprocess: Callable, eval_step: Callable, state,
         out["all_selections"] = selections
         out["flops"] = flops_computation(
             modality, {m: v.avg for m, v in selection.items()}, num_segments)
+        if dropped is not None:
+            out["capacity_dropped"] = {
+                m: int(dropped[mi]) for mi, m in enumerate(modality)}
     return out

@@ -7,10 +7,13 @@ models/adamml.py:114-132); the whole model still runs with ``train=True``,
 so the BN statistics of the frozen subnet update too (reference
 utils/utils.py:335). Gumbel and dropout noise come from per-step
 generators derived from (seed, step), the counterpart of ``_step_rngs``.
+``make_adamml_multi_step`` runs K such steps a call; on the card they are
+one captured CUDA graph, replayed (``_GraphedSteps``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -53,31 +56,31 @@ def step_generators(device: torch.device, seed: int, step: int
                  for k in (0, 1))
 
 
-def make_adamml_train_step(model: nn.Module, *, flags: StageFlags,
-                           penalty_type: str, gammas: float,
-                           clip_gradient: Optional[float]) -> Callable:
-    """Returns step(state, inputs, target, lr, p_lr, cost_weights, seed) ->
-    metrics. The step updates the model's parameters and BN statistics and
-    ``state`` (optimizers, step counter) in place. Metrics are tensors on
-    the model's device: loss, cls_loss, policy_loss, selection (M,), top1,
-    top5."""
-    device = next(model.parameters()).device
+def _adamml_step_body(model: nn.Module, *, flags: StageFlags,
+                      penalty_type: str, gammas: float,
+                      clip_gradient: Optional[float]
+                      ) -> Tuple[Callable, Callable]:
+    """(body, set_lrs). body(state, inputs, target, temperature,
+    cost_weights, gumbel, dropout) -> metrics runs forward, loss, backward,
+    clip and the update of the live subnet, with the learning rates
+    already in the optimizers (``set_lrs(state, lr, p_lr)``). It reads no
+    value back to the host, so a CUDA graph can capture it; the
+    temperature and cost weights may be device tensors."""
     has_policy = model.policy_net is not None
     update_policy = flags.update_policy and has_policy
     live = ([model.main_net] if flags.update_main else []) + (
         [model.policy_net] if update_policy else [])
 
-    def step(state: TrainState, inputs: Sequence[torch.Tensor],
-             target: torch.Tensor, lr: float, p_lr: float,
-             cost_weights: Union[Sequence[float], torch.Tensor], seed: int):
+    def body(state: TrainState, inputs: Sequence[torch.Tensor],
+             target: torch.Tensor, temperature, cost_weights,
+             gumbel: torch.Generator, drop: torch.Generator):
         model.main_net.requires_grad_(flags.update_main)
         if has_policy:
             model.policy_net.requires_grad_(flags.update_policy)
         for opt in (state.main_opt, state.policy_opt):
             if opt is not None:
                 opt.zero_grad(set_to_none=True)
-        gumbel, drop = step_generators(device, seed, state.step)
-        logits, decisions = model(inputs, state.temperature, train=True,
+        logits, decisions = model(inputs, temperature, train=True,
                                   generator=gumbel, dropout_generator=drop)
         cls_loss = cross_entropy(logits, target)
         policy_loss = compute_policy_loss(penalty_type, decisions,
@@ -91,19 +94,216 @@ def make_adamml_train_step(model: nn.Module, *, flags: StageFlags,
             loss.backward()
             clip_by_global_norm(params, clip_gradient)
         if flags.update_main:
-            set_lr(state.main_opt, lr)
             state.main_opt.step()
         if update_policy:
-            set_lr(state.policy_opt, p_lr)
             state.policy_opt.step()
-        state.step += 1
         logits = logits.detach()
         return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
                 "policy_loss": policy_loss.detach(),
                 "selection": decisions.detach().mean(dim=(0, 1)),
                 **_topk_metrics(logits, target)}
 
+    def set_lrs(state: TrainState, lr: float, p_lr: float) -> None:
+        if flags.update_main:
+            set_lr(state.main_opt, lr)
+        if update_policy:
+            set_lr(state.policy_opt, p_lr)
+
+    return body, set_lrs
+
+
+def make_adamml_train_step(model: nn.Module, *, flags: StageFlags,
+                           penalty_type: str, gammas: float,
+                           clip_gradient: Optional[float]) -> Callable:
+    """Returns step(state, inputs, target, lr, p_lr, cost_weights, seed) ->
+    metrics. The step updates the model's parameters and BN statistics and
+    ``state`` (optimizers, step counter) in place. Metrics are tensors on
+    the model's device: loss, cls_loss, policy_loss, selection (M,), top1,
+    top5."""
+    body, set_lrs = _adamml_step_body(
+        model, flags=flags, penalty_type=penalty_type, gammas=gammas,
+        clip_gradient=clip_gradient)
+    return _single_step(next(model.parameters()).device, body, set_lrs)
+
+
+def _single_step(device: torch.device, body: Callable,
+                 set_lrs: Callable) -> Callable:
+    """The single step around ``_adamml_step_body``'s body."""
+
+    def step(state: TrainState, inputs: Sequence[torch.Tensor],
+             target: torch.Tensor, lr: float, p_lr: float,
+             cost_weights: Union[Sequence[float], torch.Tensor], seed: int):
+        set_lrs(state, lr, p_lr)
+        gumbel, drop = step_generators(device, seed, state.step)
+        # the temperature as a 0-d device tensor, as a replayed graph reads
+        # it: CUDA divides by a host number through its reciprocal, which
+        # can differ from the quotient by an ulp (on the CPU the bits are
+        # the same either way)
+        temperature = torch.full((), float(state.temperature),
+                                 dtype=torch.float32, device=device)
+        metrics = body(state, inputs, target, temperature, cost_weights,
+                       gumbel, drop)
+        state.step += 1
+        return metrics
+
     return step
+
+
+def _single_steps(single: Callable, state: TrainState,
+                  stacked_inputs: Sequence[torch.Tensor],
+                  stacked_targets: torch.Tensor, lr: float, p_lr: float,
+                  cost_weights, seed: int) -> Dict[str, torch.Tensor]:
+    """K calls of the single step on the K batches, metrics stacked."""
+    metrics = [single(state, [x[s] for x in stacked_inputs],
+                      stacked_targets[s], lr, p_lr, cost_weights, seed)
+               for s in range(stacked_targets.shape[0])]
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_adamml_multi_step(model: nn.Module, *, flags: StageFlags,
+                           penalty_type: str, gammas: float,
+                           clip_gradient: Optional[float]) -> Callable:
+    """K real optimizer steps per dispatch (``adamml_tpu/train/steps.py``'s
+    ``make_adamml_multi_step``, one ``lax.scan`` there): returns
+    multi(state, stacked_inputs, stacked_targets, lr, p_lr, cost_weights,
+    seed) -> metrics with a leading K axis, where ``stacked_inputs`` is the
+    per-modality list with a leading K axis. The math is K single steps:
+    step s draws its noise from ``step_generators(device, seed,
+    state.step)`` as the single step does, and ``state.step`` advances by
+    K.
+
+    On the CPU it is K calls of the single step. On a CUDA model the K
+    steps become one CUDA graph (``_GraphedSteps``): the first dispatch
+    runs them as K single steps, the second captures the graph, and it and
+    later ones replay it."""
+    device = next(model.parameters()).device
+    body, set_lrs = _adamml_step_body(
+        model, flags=flags, penalty_type=penalty_type, gammas=gammas,
+        clip_gradient=clip_gradient)
+    single = _single_step(device, body, set_lrs)
+    if device.type == "cuda":
+        return _GraphedSteps(model, body, set_lrs, single)
+    return functools.partial(_single_steps, single)
+
+
+class _GraphedSteps:
+    """K train steps on a CUDA model as one replayed CUDA graph.
+
+    The graph reads everything that changes from one dispatch to the next
+    from tensors that stay where they are: the batches (static buffers the
+    inputs are copied into), the learning rates (the optimizers' device
+    tensors, ``optim.set_lr``), the temperature and the cost weights
+    (device scalars), and the noise: 2K generators registered with the
+    graph (``CUDAGraph.register_generator_state``), reseeded before each
+    replay to the seeds of steps ``state.step .. state.step + K - 1``, so a
+    replay draws what K single steps would. Capture records work without
+    running it, so ``state.step`` advances here, once per real step.
+
+    The first dispatch, and the first after the optimizers, their state,
+    the parameters or the shapes change (the curriculum builds new
+    optimizers between stages; a checkpoint loads new optimizer state), runs
+    K single steps: that builds the kernels, makes the optimizers' state
+    and the learning-rate tensors, and runs the kernels' one-time set-up,
+    none of which a capture may do. The next dispatch captures the graph
+    and replays it. A failed capture or replay raises; nothing falls back
+    to single steps.
+
+    The kernel wrappers count a launch when they enqueue it, so their
+    counts see a captured launch once and no replay (a device trace counts
+    the replayed kernels)."""
+
+    def __init__(self, model: nn.Module, body: Callable, set_lrs: Callable,
+                 single: Callable):
+        self.model, self.body, self.set_lrs = model, body, set_lrs
+        self.single = single
+        self.device = next(model.parameters()).device
+        self.key = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.eager_dispatches = self.replays = 0
+
+    def _key(self, state: TrainState, stacked_inputs, stacked_targets,
+             cost_weights) -> tuple:
+        """What a captured graph holds fixed: the optimizers (held, so their
+        ids cannot be reused), the address of every parameter, buffer,
+        optimizer state and learning-rate tensor, and the shapes."""
+        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        opts = (state.main_opt, state.policy_opt)
+        for opt in opts:
+            if opt is not None:
+                tensors += [v for st in opt.state.values()
+                            for v in st.values()
+                            if isinstance(v, torch.Tensor)]
+                tensors += list(getattr(opt, "_lr_tensors", {}).values())
+        return (opts,
+                tuple(t.data_ptr() for t in tensors),
+                tuple((tuple(x.shape), x.dtype) for x in stacked_inputs),
+                (tuple(stacked_targets.shape), stacked_targets.dtype),
+                len(cost_weights))
+
+    def _capture(self, state: TrainState, stacked_inputs, stacked_targets,
+                 cost_weights) -> None:
+        """The static buffers, the 2K generators and the graph of K
+        steps that read them."""
+        k = int(stacked_targets.shape[0])
+        self.inputs = [torch.empty_like(x) for x in stacked_inputs]
+        self.targets = torch.empty_like(stacked_targets)
+        self.temperature = torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+        self.cost_weights = torch.zeros(len(cost_weights),
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self.gens = [tuple(torch.Generator(device=self.device)
+                           for _ in range(2)) for _ in range(k)]
+        graph = torch.cuda.CUDAGraph()
+        for pair in self.gens:
+            for gen in pair:
+                graph.register_generator_state(gen)
+        try:
+            with torch.cuda.graph(graph):
+                metrics = [self.body(state, [x[s] for x in self.inputs],
+                                     self.targets[s], self.temperature,
+                                     self.cost_weights, *self.gens[s])
+                           for s in range(k)]
+                self.out = {n: torch.stack([m[n] for m in metrics])
+                            for n in metrics[0]}
+        except Exception as e:
+            raise RuntimeError(f"capturing {k} train steps as one CUDA "
+                               f"graph failed: {e}") from e
+        self.graph = graph
+
+    def __call__(self, state: TrainState,
+                 stacked_inputs: Sequence[torch.Tensor],
+                 stacked_targets: torch.Tensor, lr: float, p_lr: float,
+                 cost_weights, seed: int) -> Dict[str, torch.Tensor]:
+        key = self._key(state, stacked_inputs, stacked_targets, cost_weights)
+        if key != self.key:
+            self.graph = self.out = None
+            metrics = _single_steps(self.single, state, stacked_inputs,
+                                    stacked_targets, lr, p_lr, cost_weights,
+                                    seed)
+            self.eager_dispatches += 1
+            # the optimizers' state exists now: what the capture will hold
+            self.key = self._key(state, stacked_inputs, stacked_targets,
+                                 cost_weights)
+            return metrics
+        if self.graph is None:
+            self._capture(state, stacked_inputs, stacked_targets,
+                          cost_weights)
+        for buf, x in zip(self.inputs, stacked_inputs):
+            buf.copy_(x, non_blocking=True)
+        self.targets.copy_(stacked_targets, non_blocking=True)
+        self.set_lrs(state, lr, p_lr)
+        self.temperature.fill_(float(state.temperature))
+        self.cost_weights.copy_(torch.as_tensor(cost_weights,
+                                                dtype=torch.float32))
+        for s, pair in enumerate(self.gens):
+            base = step_seed(seed, state.step + s)
+            for j, gen in enumerate(pair):
+                gen.manual_seed(step_seed(base, j))
+        self.graph.replay()
+        state.step += len(self.gens)
+        self.replays += 1
+        return {name: v.clone() for name, v in self.out.items()}
 
 
 def _crop_mean(logits: torch.Tensor, num_crops: int) -> torch.Tensor:

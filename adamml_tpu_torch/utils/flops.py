@@ -1,16 +1,23 @@
-"""Modeled GFLOPs for adaptive-selection reporting (the port's copy of the
-cost table and ``flops_computation`` of ``adamml_tpu/utils/flops.py``).
+"""Modeled GFLOPs for adaptive-selection reporting, and a FLOP count of a
+model's forward (``adamml_tpu/utils/flops.py``).
 
-The fixed per-segment cost table and the selection-rate-weighted total,
-numerically identical to the reference (reference utils/utils.py:510-535).
-It models what an ideal conditional executor would spend -- the reference
-never actually skips masked modalities (reference models/adamml.py:82-86).
-The analytic per-module counter (``count_model_flops``) is not ported yet.
+1. The fixed per-segment cost table and the selection-rate-weighted total,
+   numerically identical to the reference (reference
+   utils/utils.py:510-535). It models what an ideal conditional executor
+   would spend -- the reference never actually skips masked modalities
+   (reference models/adamml.py:82-86).
+2. ``count_model_flops``: the FLOPs of one forward, counted by
+   ``torch.utils.flop_counter.FlopCounterMode`` (2 per multiply-add of
+   the matmuls and convolutions). The JAX package takes XLA's cost
+   analysis, which also counts elementwise work, so its count is higher.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping, Sequence
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 # Per-segment FLOPs tables (reference utils/utils.py:512-523), units: FLOPs.
 MAIN_FLOPS: Dict[str, int] = {
@@ -44,3 +51,14 @@ def flops_computation(modality: Sequence[str], ratios: Mapping[str, float],
             total += POLICY_FLOPS["rgbdiff"] * num_segments
     total += POLICY_FLOPS["lstm"] * num_segments
     return total / 1e9
+
+
+def count_model_flops(model: torch.nn.Module, *args, **kwargs) -> int:
+    """FLOPs of ``model(*args, **kwargs)``, run once without gradients: 2
+    per multiply-add of its matmuls and convolutions (the operations
+    ``FlopCounterMode`` counts; elementwise work and the hand-written
+    kernels count 0)."""
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(*args, **kwargs)
+    return int(counter.get_total_flops())

@@ -43,6 +43,24 @@ Phases, each printing one JSON line (or several):
               depthwise kernel's forward and input-gradient launches of
               every step asserted (main 51 + 13, policy 85 + 26: the
               policy trunks' remat runs their forward again);
+  multi_step  the multi-step dispatch (make_adamml_multi_step, K = 2
+              train steps captured as one CUDA graph and replayed) of the
+              flagship at full width in both phases: from one snapshot the
+              replay against K calls of the single step
+              (make_adamml_train_step), bit for bit (parameters, BN
+              statistics, optimizer state, step, metrics); the epilogue
+              kernels of one replay and of K single steps counted in a
+              device trace; ms per step, host ms per dispatch, device idle
+              share and peak memory, single steps against replayed; then the tiny config with use_pallas_dw=True in
+              the policy phase (the depthwise kernel and the trunks' remat
+              under capture);
+  eval_capacity  eval-capacity conditional compute at full width,
+              capacity 1.0, 0.5 and 0.25 in one block and 0.5 in two:
+              packed logits against the unpacked net's masked logits with
+              forced decisions, the epilogue's launches on the packed row
+              counts, eval ms, validate's capacity_dropped against a count
+              made here; then the forward epilogue kernel against its
+              plain version at N = 20 and 10 (kernel_packed lines);
   kernel_dw   the depthwise kernel against its plain version at every
               distinct layer of serve_dw (bf16, taps as the model passes
               them), timed as the kernel alone (kernel_ms: the C entry with
@@ -68,7 +86,10 @@ Phases, each printing one JSON line (or several):
               evaluation, then train_unimodal (rgb ResNet-50); launch
               counts zeroed before each run and read after, and every
               epoch's epilogue launches checked; stage seconds, the
-              engine's ms/batch, data ms/batch and peak memory;
+              engine's ms/batch, data ms/batch and peak memory; then
+              train_adamml with --steps_per_dispatch 2 --eval_capacity 0.5
+              --profile_dir on 48 videos (each pass's trace holds one
+              replay, its kernels counted) and --show_model's FLOP count;
   real_data   the paper's recipe on real files: a kinetics-sounds tree
               generated here (16 videos of 64 JPEGs at 256x340, 24 kHz
               WAVs, one video without its WAV), the decoder that loads
@@ -76,8 +97,9 @@ Phases, each printing one JSON line (or several):
               card against the CPU, train_unimodal rgb and sound, the
               flagship curriculum with --unimodality_pretrained (graft
               checked bit for bit), then -e --pretrained (tensors and
-              temperature checked); every epoch's epilogue launches and
-              every JPEG's decoder counted;
+              temperature checked) and --pred_files on the file -e wrote
+              (its top-1 equal to the evaluation's); every epoch's
+              epilogue launches and every JPEG's decoder counted;
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -89,6 +111,9 @@ compared with the plain versions and with the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import math
 import os
@@ -123,8 +148,10 @@ from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                            l2_flush_buffer, nvidia_smi,
                                            within_one_bf16_ulp)
 from adamml_tpu_torch.train import curriculum as cur
+from adamml_tpu_torch.train.engine import validate
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
+                                          make_adamml_multi_step,
                                           make_adamml_train_step)
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
@@ -697,6 +724,366 @@ def train_vs_plain_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# the multi-step dispatch's K and its kernels' names in a device trace
+K_DISPATCH = 2
+FWD_NAME, BWD_NAME, DW_NAME = ("tpool_fused_kernel", "tpool_fused_bwd_kernel",
+                               "dw3x3_kernel")
+
+
+def _train_snapshot(model, state) -> tuple:
+    """Parameters, BN statistics, both optimizers' state and the step."""
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            [{p: {k: v.clone() for k, v in st.items()}
+              for p, st in opt.state.items()}
+             for opt in (state.main_opt, state.policy_opt)], state.step)
+
+
+def _train_restore(model, state, snap) -> None:
+    """Back to ``snap`` in place: the same tensors, so a captured graph's
+    addresses stay valid."""
+    model.load_state_dict(snap[0])
+    for opt, saved in zip((state.main_opt, state.policy_opt), snap[1]):
+        check(set(opt.state) == set(saved), "optimizer state changed keys")
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                v.copy_(saved[p][k])
+    state.step = snap[2]
+
+
+def _snapshot_diff(a, b) -> dict:
+    """Tensors of two snapshots that differ, and the largest difference."""
+    pairs = [(f"model.{k}", a[0][k], b[0][k]) for k in a[0]]
+    for i, (sa, sb) in enumerate(zip(a[1], b[1])):
+        pairs += [(f"opt{i}.{k}", v, sb[p][k]) for p, st in sa.items()
+                  for k, v in st.items()]
+    bad = [(n, float((x.float() - y.float()).abs().max()))
+           for n, x, y in pairs if not torch.equal(x, y)]
+    return {"tensors": len(pairs), "unequal": len(bad),
+            "max_abs_diff": max((d for _, d in bad), default=0.0),
+            "steps": [a[2], b[2]], "first_unequal": [n for n, _ in bad[:3]]}
+
+
+def _stacked_batches(cfg, k, batch, seed, dev):
+    xs = [example_inputs(cfg, batch=batch, seed=seed + i) for i in range(k)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return ([torch.stack([x[m] for x in xs]) for m in range(len(xs[0]))],
+            torch.randint(0, cfg.model.num_classes, (k, batch),
+                          generator=gen, device=dev))
+
+
+def _replay_vs_eager(cfg, phase, batch, dev, label, card=None) -> dict:
+    """One model, one K-step multi-step: a first dispatch (K single steps:
+    it makes the optimizers' state), a snapshot, the second dispatch
+    (capture and the first replay), then from the snapshot K calls of
+    make_adamml_train_step, the plain single step that K = 1 runs. Both
+    must leave the same parameters, BN statistics, optimizer state, step
+    and metrics, bit for bit. With ``card``, also the timings, the device
+    trace of one replay and of K single steps, and peak memory.
+    Float32 cuDNN convolutions at the tiny config's shapes pick algorithms
+    whose sums vary from run to run (two eager runs differ), so tiny
+    configs run with cudnn.deterministic; the flagship's bf16 runs are
+    bit-reproducible as they are."""
+    k = K_DISPATCH
+    model, name = build_model(cfg)
+    state = _train_state(model, cfg)
+    multi = make_adamml_multi_step(model, flags=_flags(phase),
+                                   penalty_type="blockdrop", gammas=GAMMAS,
+                                   clip_gradient=None)
+    single = make_adamml_train_step(model, flags=_flags(phase),
+                                    penalty_type="blockdrop", gammas=GAMMAS,
+                                    clip_gradient=None)
+
+    def eager(state, xs, ts, lr, p_lr, cost_weights, seed):
+        ms = [single(state, [x[s] for x in xs], ts[s], lr, p_lr,
+                     cost_weights, seed) for s in range(k)]
+        return {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+
+    x1, t1 = _stacked_batches(cfg, k, batch, 400, dev)
+    x2, t2 = _stacked_batches(cfg, k, batch, 500, dev)
+    args = (LR, P_LR, COST)
+    multi(state, x1, t1, *args, 3)
+    torch.cuda.synchronize()
+    check(multi.eager_dispatches == 1 and multi.replays == 0,
+          f"{label} {phase}: the first dispatch did not run eagerly")
+    snap = _train_snapshot(model, state)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # this path: counts zeroed just before, read just after; a capture
+    # counts its launches once, a replay not at all (the trace below
+    # counts the replayed kernels)
+    zero_counts()
+    replayed = multi(state, x2, t2, *args, 4)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    check(multi.replays == 1, f"{label} {phase}: no replay")
+    got = _train_snapshot(model, state)
+    _train_restore(model, state, snap)
+    singles = eager(state, x2, t2, *args, 4)
+    torch.cuda.synchronize()
+    want = _train_snapshot(model, state)
+    diff = _snapshot_diff(got, want)
+    mdiff = {n: float((replayed[n].float() - singles[n].float()).abs().max())
+             for n in singles}
+    check(diff["unequal"] == 0 and not any(mdiff.values()),
+          f"{label} {phase}: replay differs from {k} single steps: {diff}, "
+          f"metrics {mdiff}")
+    check(all(bool(torch.isfinite(v).all()) for v in replayed.values()),
+          f"{label} {phase}: non-finite metrics")
+    line = dict(curriculum_phase=phase, arch=name, K=k, batch_clips=batch,
+                replay_vs_single_steps=diff, metrics_max_abs_diff=mdiff,
+                loss=replayed["loss"].tolist(),
+                capture_launches=launches)
+    # the kernels one replay and K single steps put on the card
+    _train_restore(model, state, snap)
+    rk, r_wall = _device_trace(lambda: multi(state, x2, t2, *args, 4))
+    _train_restore(model, state, snap)
+    ek, e_wall = _device_trace(lambda: eager(state, x2, t2, *args, 4))
+    names = {"replay": [n for n, _, _ in rk], "eager": [n for n, _, _ in ek]}
+    per = {kind: {"forward": sum(FWD_NAME in n and BWD_NAME not in n
+                                 for n in ns),
+                  "backward": sum(BWD_NAME in n for n in ns),
+                  "depthwise": sum(DW_NAME in n for n in ns),
+                  "kernels": len(ns)} for kind, ns in names.items()}
+    # one epilogue at each stage boundary that pools frames: 3 at the
+    # flagship's 8 frames, 2 at the tiny config's 4
+    pools = sum(cfg.model.groups >> i > 1 for i in range(3))
+    want_bwd = pools * k if phase == "main" else 0
+    dw_step = DW_STEP[phase] if cfg.model.use_pallas_dw else (0, 0)
+    for kind in ("replay", "eager"):
+        check(per[kind]["forward"] == pools * k
+              and per[kind]["backward"] == want_bwd
+              and per[kind]["depthwise"] == k * sum(dw_step),
+              f"{label} {phase} {kind}: kernels {per[kind]}, expected "
+              f"{pools * k} forward, {want_bwd} backward epilogue and "
+              f"{k * sum(dw_step)} depthwise kernels")
+    line.update(trace_kernels=per)
+    if card is not None:
+        peak = torch.cuda.max_memory_allocated(dev)
+        times = {"replay": [], "eager": []}
+        host = {"replay": [], "eager": []}
+        for rep in range(4):
+            for kind, fn in (("eager", eager), ("replay", multi)):
+                _train_restore(model, state, snap)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(state, x2, t2, *args, 4)
+                t1_ = time.perf_counter()
+                torch.cuda.synchronize()
+                t2_ = time.perf_counter()
+                if rep:  # rep 0 is the warm-up
+                    times[kind].append((t2_ - t0) / k * 1e3)
+                    host[kind].append((t1_ - t0) * 1e3)
+        line.update(
+            card=card, median_ms_per_step={
+                kd: float(np.median(v)) for kd, v in times.items()},
+            ms_per_step=times, host_ms_per_dispatch=host,
+            device_idle_share={"replay": _idle_share(rk, r_wall),
+                               "eager": _idle_share(ek, e_wall)},
+            max_memory_allocated_bytes_with_graph_pool=peak,
+            timing="host clock around one dispatch of K steps ending in "
+                   "torch.cuda.synchronize(), per step; 3 of each after "
+                   "1 warm-up, K single steps and replay in turns from one "
+                   "snapshot; host_ms_per_dispatch until the call "
+                   "returns; idle share from the torch.profiler trace of "
+                   "one dispatch")
+    emit(label, **line)
+    out = {"capture": launches, "trace": per}
+    del multi, single, model, state, snap, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_step_phase(dev, card: str) -> dict:
+    """The multi-step dispatch (make_adamml_multi_step, K = 2 steps as one
+    replayed CUDA graph) of the flagship at full width, bf16, 8 clips a
+    step, in both curriculum phases: replay against K single steps
+    (make_adamml_train_step) from one snapshot (bit for bit), each with
+    its kernels counted
+    in a device trace (3 forward and, in the main phase, 3 backward
+    epilogue kernels a step), with ms per step, host ms per dispatch,
+    device idle share and peak memory. Then the tiny float32 config with
+    use_pallas_dw=True (the policy phase: the trunks' remat under capture),
+    so the depthwise kernel is seen in a replay too."""
+    out = {}
+    for phase in ("main", "policy"):
+        out[phase] = _replay_vs_eager(flagship_cfg(), phase, 8, dev,
+                                      "multi_step", card)
+    tiny = flagship_cfg(tiny=True)
+    tiny.model.use_pallas_dw = True
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["tiny_dw_policy"] = _replay_vs_eager(tiny, "policy", 4, dev,
+                                                 "multi_step_tiny_dw")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+# (eval_capacity, capacity_groups) of the eval_capacity phase
+CAPACITIES = [(1.0, 1), (0.5, 1), (0.25, 1), (0.5, 2)]
+
+
+def _packed_rows(fn) -> tuple:
+    """(the row counts N of the forward epilogue's kernel launches in
+    ``fn``, what ``fn`` returns); measurement only: the launcher is
+    wrapped while ``fn`` runs."""
+    rows, real = [], tp._launch
+
+    def launch(y, *args):
+        rows.append(int(y.shape[0]))
+        return real(y, *args)
+    tp._launch = launch
+    try:
+        out = fn()
+    finally:
+        tp._launch = real
+    return rows, out
+
+
+def eval_capacity_phase(dev, card: str) -> dict:
+    """Eval-capacity conditional compute at full width (bf16, 8 clips x 5
+    segments = 40 rows): capacity 1.0, 0.5 and 0.25 in one block and 0.5 in
+    two. For each: the main net with decisions forced to select at most
+    cap rows a block against the unpacked net's masked logits on the same
+    weights; the flagship eval step's ms (real decisions); validate's
+    capacity_dropped against a count made here; and the forward epilogue
+    kernel against its plain version at the packed row counts."""
+    base_cfg = flagship_cfg()
+    base, name = build_model(base_cfg)
+    s = base_cfg.model.num_segments
+    batch = 8
+    rows = batch * s
+    x = example_inputs(base_cfg, batch=batch, seed=600)
+    m_x = [a.reshape((rows,) + tuple(a.shape[2:])) for a in x]
+    gen = torch.Generator(device=dev).manual_seed(601)
+    target = torch.randint(0, base_cfg.model.num_classes, (batch,),
+                           generator=gen, device=dev)
+    launches = {}
+    for c, g in CAPACITIES:
+        label = f"c{c}_G{g}"
+        cfg = flagship_cfg()
+        cfg.model.eval_capacity, cfg.model.capacity_groups = c, g
+        model, _ = build_model(cfg)
+        model.load_state_dict(base.state_dict())
+        bl = rows // g
+        cap = max(1, int(round(c * bl)))
+        # forced decisions: in each block a seeded choice of at most cap
+        # rows per modality (cap - 1 in the second modality)
+        dec = torch.zeros((2, rows), device=dev)
+        for m in range(2):
+            for b in range(g):
+                pick = torch.randperm(bl, generator=gen, device=dev)[
+                    :max(1, min(cap, bl) - m)]
+                dec[m, b * bl + pick] = 1.0
+        with torch.no_grad():
+            zero_counts()
+            got_rows, packed = _packed_rows(
+                lambda: model.main_net(m_x, dec, seq_groups=s))
+            launches[label] = all_counts()
+            want = base.main_net(m_x, dec, seq_groups=s)
+        torch.cuda.synchronize()
+        n_run = rows if c >= 1.0 else g * cap
+        check(got_rows == [n_run] * 3, f"{label}: epilogue launches on rows "
+              f"{got_rows}, expected 3 on {n_run}")
+        scale = float(want.abs().max())
+        diff = float((packed - want).abs().max())
+        # the backbone on fewer rows: cuDNN may pick other algorithms for
+        # another batch, which sum in another order and round to bf16 at
+        # other places; 2% of the largest logit, serve_vs_plain's bound
+        tol = 0.02 * max(scale, 1.0)
+        check(bool(torch.isfinite(packed).all()) and diff <= tol,
+              f"{label}: packed logits differ from the masked unpacked "
+              f"ones by {diff} > {tol}")
+        # the eval step with the policy's real decisions
+        step = make_adamml_eval_step(model)
+        lat, drops = [], []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, decisions, loss = step(EvalState(), x, target, seed=i)
+            torch.cuda.synchronize()
+            if i:
+                lat.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(logits).all()), f"{label}: logits")
+        # validate's count against one made here from the same decisions
+        batches = [0, 1]
+        v = validate(batches, lambda b: (x, target), step, EvalState(),
+                     seed=11, modality=["rgb", "sound"], adamml=True,
+                     num_segments=s, eval_capacity=c, capacity_groups=g)
+        host = [0, 0]
+        for sel in np.split(v["all_selections"], len(batches)):
+            flat = sel.reshape(rows, 2)
+            for m in range(2):
+                for b in range(g):
+                    on = int(flat[b * bl:(b + 1) * bl, m].sum())
+                    host[m] += max(0, on - cap) if c < 1.0 else 0
+        counted = v.get("capacity_dropped", {"rgb": 0, "sound": 0})
+        check([counted["rgb"], counted["sound"]] == host,
+              f"{label}: capacity_dropped {counted}, counted here {host}")
+        emit("eval_capacity", card=card, arch=name, eval_capacity=c,
+             capacity_groups=g, rows=rows, cap_per_block=cap,
+             backbone_rows=n_run, forced_max_abs_logit=scale,
+             forced_max_abs_diff=diff, tolerance=tol,
+             eval_latency_ms=lat, median_ms=float(np.median(lat)),
+             selection_rate=float(decisions.mean()),
+             capacity_dropped=counted, host_count=host,
+             launches=launches[label],
+             timing="host clock around one eval step of 8 clips ending in "
+                    "torch.cuda.synchronize(), 4 after 1 warm-up")
+        del model, step
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel": kernel_packed_rows(dev)}
+
+
+def kernel_packed_rows(dev) -> dict:
+    """The forward epilogue kernel against its plain version at the three
+    stage boundaries on the packed row counts of eval capacity 0.5 and
+    0.25 (N = 20 and 10, bf16, eval affine R = S = 1), with CUDA-event
+    times beside the bound, as kernel_phase times N = 40."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = l2_flush_buffer(dev)
+    res = {}
+    for n in (20, 10):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "max_abs_err": 0.0}
+        for stage, (f, h, w, c) in enumerate(
+                [(8, 56, 56, 256), (4, 28, 28, 512), (2, 14, 14, 1024)], 1):
+            y = torch.randn((n, f, h, w, c), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            ident = torch.randn((n, f, h, w, c), generator=gen,
+                                device=dev).to(torch.bfloat16)
+            a = 1.0 + 0.3 * torch.randn((1, 1, c), generator=gen, device=dev)
+            b = 0.1 * torch.randn((1, 1, c), generator=gen, device=dev)
+            got = tp.fused_bn_add_relu_tpool(y, ident, a, b)
+            want = tp.reference_impl(y, ident, a, b)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(within_one_bf16_ulp(got, want), f"packed N={n} stage "
+                  f"{stage}: kernel beyond 1 bf16 ulp (max abs err {err})")
+            nbytes, ops = tpool_work(n, f, h, w, c, 2)
+            bound, by = bound_ms(nbytes, ops)
+            k_ms = event_ms(lambda: tp.fused_bn_add_relu_tpool(
+                y, ident, a, b), flush=flush)
+            p_ms = event_ms(lambda: tp.reference_impl(y, ident, a, b),
+                            flush=flush)
+            emit("kernel_packed", case=f"N{n}_stage{stage}",
+                 shape=[n, f, h, w, c], dtype="bfloat16", max_abs_err=err,
+                 tolerance="1 bf16 ulp", kernel_ms=k_ms, plain_ms=p_ms,
+                 bound_ms=bound, bound_by=by, share_of_bound=bound / k_ms,
+                 library_ms=None,
+                 timing="CUDA events, mean of 20 after 3 warm-up, L2 "
+                        "flushed between launches")
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += bound
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            del y, ident, got, want
+        tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+        res[f"N{n}"] = tot
+    return res
+
+
 def _st_zero_noise(generator, logits, tau):
     """Zero-noise straight-through decision: no generator stream."""
     y = torch.softmax(logits / tau, dim=-1)
@@ -855,14 +1242,16 @@ def _cudnn_dw(x, taps, stride):
                             groups=c)
 
 
-def _device_kernels(fn) -> list:
-    """Names of the kernels ``fn`` puts on the card: the "kernel" events of
-    a torch.profiler trace (CPU and CUDA activities), counted as
+def _device_trace(fn) -> tuple:
+    """(kernel events, wall us) of one call of ``fn``, ending in
+    torch.cuda.synchronize(): the "kernel" events of a torch.profiler
+    trace (CPU and CUDA activities) as (name, start us, duration us), and
+    the host's span of the call, counted as
     adamml_tpu_torch/tools/profile_eval_step.py counts them. A later
     session in a process can miss its first kernels (and a trace its
     last), so runs of marker kernels (torch.cuda._sleep's spin_kernel)
-    come before and after ``fn``; the trace must begin and end with a
-    marker, and ``fn``'s kernels are the others."""
+    come before and after the call; the trace must begin and end with a
+    marker, and the call's kernels are the others."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -872,8 +1261,9 @@ def _device_kernels(fn) -> list:
         for _ in range(MARKERS):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
+        with torch.profiler.record_function("profiled_call"):
+            fn()
+            torch.cuda.synchronize()
         for _ in range(MARKERS):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -882,14 +1272,32 @@ def _device_kernels(fn) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    names = [e["name"] for e in sorted(
-        (e for e in events if e.get("ph") == "X" and e.get("cat") ==
-         "kernel"), key=lambda e: float(e["ts"]))]
-    marks = ["spin_kernel" in n for n in names]
+    kernels = sorted(((e["name"], float(e["ts"]), float(e["dur"]))
+                      for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "kernel"), key=lambda k: k[1])
+    wall = sum(float(e["dur"]) for e in events if e.get("ph") == "X"
+               and e.get("name") == "profiled_call"
+               and e.get("cat") == "user_annotation")
+    marks = ["spin_kernel" in k[0] for k in kernels]
     check(bool(marks) and marks[0] and marks[-1],
           f"the profiler trace lost the markers around the profiled call "
-          f"({len(names)} kernels)")
-    return [n for n, m in zip(names, marks) if not m]
+          f"({len(kernels)} kernels)")
+    return [k for k, m in zip(kernels, marks) if not m], wall
+
+
+def _device_kernels(fn) -> list:
+    """Names of the kernels ``fn`` puts on the card (``_device_trace``)."""
+    return [k[0] for k in _device_trace(fn)[0]]
+
+
+def _idle_share(kernels, wall_us: float) -> float:
+    """1 - (the union of the kernels' intervals) / the calls' host span."""
+    busy, end = 0.0, float("-inf")
+    for _, t0, dur in sorted(kernels, key=lambda k: k[1]):
+        if t0 + dur > end:
+            busy += t0 + dur - max(t0, end)
+            end = t0 + dur
+    return 1.0 - busy / wall_us
 
 
 # (label, (B, H, W, C), stride, dtype, affine with ReLU6): float32, odd
@@ -1207,6 +1615,13 @@ FLAGSHIP_FLAGS = (
     "--finetune_epochs 1 -j 8 --seed 7").split()
 CLI_ADAMML = ["--dataset", "synthetic", "--synthetic_length", "16",
               *FLAGSHIP_FLAGS]
+# the curriculum with K = 2 steps a dispatch, packed eval at capacity 0.5
+# and step traces: 48 videos, 6 batches a pass, so each pass runs one
+# dispatch of K single steps, one capture with its first replay (traced, loader
+# indices 2-4) and one more replay
+CLI_MULTI = ["--dataset", "synthetic", "--synthetic_length", "48",
+             *FLAGSHIP_FLAGS, "--steps_per_dispatch", str(K_DISPATCH),
+             "--eval_capacity", "0.5"]
 CLI_UNIMODAL = (
     "--dataset synthetic --modality rgb --backbone_net resnet -d 50 "
     "--groups 8 -b 8 --epochs 1 --synthetic_length 16 -j 8").split()
@@ -1414,8 +1829,102 @@ def cli_phase(dev, card: str) -> dict:
              epochs=[_epoch_line(e) for e in run["probe"].epochs],
              launches=run["launches"], max_memory_allocated_bytes=run["peak"],
              artifacts=sorted(files))
+    out.update(_cli_multi_run(card))
+    out["show_model"] = _cli_show_model(card)
     torch.cuda.empty_cache()
     return out
+
+
+def _trace_kernel_counts(path: str) -> dict:
+    """The epilogue and depthwise kernels in a StepProfiler trace."""
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return {"forward": sum(FWD_NAME in n and BWD_NAME not in n
+                           for n in names),
+            "backward": sum(BWD_NAME in n for n in names),
+            "depthwise": sum(DW_NAME in n for n in names),
+            "kernels": len(names)}
+
+
+def _cli_multi_run(card: str) -> dict:
+    """train_adamml with --steps_per_dispatch 2 --eval_capacity 0.5
+    --profile_dir: each training pass's first epoch writes a trace of
+    loader indices 2-4, which hold the first replay of K steps (its
+    kernels counted from the trace); the wrappers count the first
+    dispatch's launches (K single steps) and the capture's, none of the replays."""
+    k = K_DISPATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        traces = os.path.join(tmp, "traces")
+        argv = CLI_MULTI + ["--profile_dir", traces]
+        run = _run_cli(train_adamml.main, argv, os.path.join(tmp, "logs"))
+        lines = [msg for _, msg in run["probe"].lines]
+        seen = [b for b in BANNERS if any(m.startswith(b) for m in lines)]
+        check(seen == list(BANNERS), f"multi-step run: banners {seen}")
+        epochs = run["probe"].epochs
+        kinds = [(e["kind"], bool(any(e["cost"]))) for e in epochs]
+        check(kinds == [("train", False), ("train", False), ("train", True),
+                        ("val", False), ("train", False), ("val", False)],
+              f"multi-step run: epochs {kinds}")
+        for i, e in enumerate(epochs):
+            sm = e["summary"]
+            check(math.isfinite(sm["loss"]), f"multi-step epoch {i}: loss")
+            got = (e["launches"][tp.KERNEL], e["launches"][tp.KERNEL_BWD])
+            if e["kind"] == "train":
+                check(sm["num_batch"] == 6, f"epoch {i}: "
+                      f"{sm['num_batch']} batches")
+                # 2K steps launched by the host: the first dispatch's and
+                # the capture's; the replays launch from the graph
+                policy = any(e["cost"])
+                want = (3 * 2 * k, 0 if policy else 3 * 2 * k)
+            else:
+                want = (3 * -(-len(sm["outputs"]) // 8), 0)
+            check(got == want, f"multi-step {e['kind']} epoch {i}: {got} "
+                  f"(forward, backward) host-counted launches, expected "
+                  f"{want}")
+        files = sorted(glob.glob(os.path.join(traces, "*.pt.trace.json")))
+        check(len(files) == 4, f"--profile_dir wrote {len(files)} traces, "
+              f"expected 4 (warmup, main, policy, finetune)")
+        in_trace = [_trace_kernel_counts(f) for f in files]
+        for i, (cnt, policy) in enumerate(zip(in_trace, (False, False, True,
+                                                         False))):
+            want = (3 * k, 0 if policy else 3 * k)
+            check((cnt["forward"], cnt["backward"]) == want,
+                  f"trace {i}: {cnt} epilogue kernels, expected {want} "
+                  f"(one replay of {k} steps)")
+        emit("cli", run="train_adamml --steps_per_dispatch 2 "
+                        "--eval_capacity 0.5 --profile_dir", card=card,
+             argv=argv, seconds=run["seconds"],
+             stage_seconds=_stage_seconds(run, BANNERS),
+             epochs=[_epoch_line(e) for e in epochs],
+             capacity_dropped=[e["summary"].get("capacity_dropped")
+                               for e in epochs if e["kind"] == "val"],
+             launches=run["launches"], trace_files=len(files),
+             trace_kernels=in_trace,
+             max_memory_allocated_bytes=run["peak"],
+             timing="host clock; each epoch and validation ends in "
+                    "torch.cuda.synchronize()")
+    return {"train_adamml_multi": run["launches"],
+            "train_adamml_multi_traces": in_trace}
+
+
+def _cli_show_model(card: str) -> str:
+    """train_adamml --show_model: the module, its parameters and the eval
+    forward's FLOPs at batch 1 (FlopCounterMode)."""
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(buf):
+        rc = train_adamml.main(CLI_ADAMML + ["--show_model", "--logdir",
+                                             tmp])
+    check(rc == 0, f"--show_model: exit code {rc}")
+    lines = buf.getvalue().splitlines()
+    flops = [ln for ln in lines if ln.startswith("Total flops")]
+    params = [ln for ln in lines if ln.startswith("Total params")]
+    check(len(flops) == 1 and "GFLOPs (fwd, batch 1)" in flops[0],
+          f"--show_model printed {flops}")
+    emit("cli", run="train_adamml --show_model", card=card,
+         params=params[0], flops=flops[0])
+    return flops[0]
 
 
 def _preprocess_card_vs_cpu(dev, cfg, batch) -> dict:
@@ -1681,6 +2190,24 @@ def real_data_phase(dev, card: str) -> dict:
               f"{payload['temperature']}")
         _check_epochs("train_adamml -e --pretrained", ev["probe"].epochs)
         out["train_adamml_evaluate"] = ev["launches"]
+        # --pred_files on what -e wrote: one file scores as its validation
+        efolder = os.path.join(tmp, "evaluate",
+                               os.listdir(os.path.join(tmp, "evaluate"))[0])
+        npy = [os.path.join(efolder, f) for f in os.listdir(efolder)
+               if f.startswith("val_") and f.endswith(".npy")]
+        check(len(npy) == 1, f"-e wrote {npy}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_adamml.main(["--dataset", "kinetics-sounds",
+                                    "--datadir", rgb, sound, *FLAGSHIP_FLAGS,
+                                    "--pred_files", npy[0]])
+        scored = buf.getvalue().strip().splitlines()[-1]
+        top1 = ev["probe"].epochs[-1]["summary"]["top1"]
+        check(rc == 0 and scored.startswith("Ensemble of 1 prediction")
+              and f"Top@1: {top1:.4f}" in scored,
+              f"--pred_files printed {scored!r}; -e scored top-1 {top1}")
+        emit("real_data", run="--pred_files", card=card, line=scored,
+             evaluate_top1=top1)
         emit("real_data", run="train_adamml -e --pretrained", card=card,
              source=os.path.basename(source), seconds=ev["seconds"],
              epochs=[_epoch_line(e) for e in ev["probe"].epochs],
@@ -1728,6 +2255,8 @@ def main() -> int:
     emit("serve_dw_kernels", default=sres["kernels_per_step"],
          use_pallas_dw=sdw["kernels_per_step"], difference=extra)
     tdw = train_phase(dev, smi, use_pallas_dw=True)
+    mres = multi_step_phase(dev, smi)
+    eres = eval_capacity_phase(dev, smi)
     dres = kernel_dw_phase(dev, sdw["dw_layers"])
     tiny_reference_phase(dev)
     tiny_train_phase(dev)
@@ -1766,10 +2295,26 @@ def main() -> int:
                 rres["train_unimodal_rgb"][tp.KERNEL],
             "real_data_train_adamml": rres["train_adamml"][tp.KERNEL],
             "real_data_train_adamml_evaluate":
-                rres["train_adamml_evaluate"][tp.KERNEL]},
+                rres["train_adamml_evaluate"][tp.KERNEL],
+            "multi_step_main_capture": mres["main"]["capture"][tp.KERNEL],
+            "multi_step_main_replay_trace":
+                mres["main"]["trace"]["replay"]["forward"],
+            "multi_step_policy_capture":
+                mres["policy"]["capture"][tp.KERNEL],
+            "multi_step_policy_replay_trace":
+                mres["policy"]["trace"]["replay"]["forward"],
+            "cli_train_adamml_multi": cres["train_adamml_multi"][tp.KERNEL],
+            "cli_train_adamml_multi_traces": [
+                t["forward"] for t in cres["train_adamml_multi_traces"]],
+            **{f"eval_capacity_{k}": v[tp.KERNEL]
+               for k, v in eres["launches"].items()}},
+        "packed_rows": eres["kernel"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
-                "flagship stage boundaries of one 8-clip eval step; "
-                "launches are the serve path's (5 batches)"}, {
+                "flagship stage boundaries of one 8-clip eval step "
+                "(packed_rows: the same at N = 20 and 10); launches are "
+                "the serve path's (5 batches); a captured launch counts "
+                "once and a replayed one not (the *_trace entries count "
+                "one replay's kernels in a device trace)"}, {
         "name": tp.KERNEL_BWD, "route": "cuda",
         "source": "adamml_tpu_torch/csrc/tpool_fused_bwd.cu",
         "replaces": "adamml_tpu/ops/pallas/tpool_fused.py:92",
@@ -1788,7 +2333,17 @@ def main() -> int:
             "cli_train_unimodal": cres["train_unimodal"][tp.KERNEL_BWD],
             "real_data_train_unimodal_rgb":
                 rres["train_unimodal_rgb"][tp.KERNEL_BWD],
-            "real_data_train_adamml": rres["train_adamml"][tp.KERNEL_BWD]},
+            "real_data_train_adamml": rres["train_adamml"][tp.KERNEL_BWD],
+            "multi_step_main_capture":
+                mres["main"]["capture"][tp.KERNEL_BWD],
+            "multi_step_main_replay_trace":
+                mres["main"]["trace"]["replay"]["backward"],
+            "multi_step_policy_replay_trace":
+                mres["policy"]["trace"]["replay"]["backward"],
+            "cli_train_adamml_multi":
+                cres["train_adamml_multi"][tp.KERNEL_BWD],
+            "cli_train_adamml_multi_traces": [
+                t["backward"] for t in cres["train_adamml_multi_traces"]]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "
@@ -1812,6 +2367,12 @@ def main() -> int:
             "train_dw_policy": {
                 "forward": tdw["policy"][dwk.KERNEL],
                 "input_gradient": tdw["policy"][dwk.KERNEL_DX]},
+            "multi_step_tiny_dw_policy_capture": {
+                "forward": mres["tiny_dw_policy"]["capture"][dwk.KERNEL],
+                "input_gradient":
+                    mres["tiny_dw_policy"]["capture"][dwk.KERNEL_DX]},
+            "multi_step_tiny_dw_policy_replay_trace":
+                mres["tiny_dw_policy"]["trace"]["replay"]["depthwise"],
             "tools": ores["launches"][dwk.KERNEL]},
         "note": "ms (the kernel alone), call_ms (depthwise_conv3x3 as "
                 "the model calls it), plain_ms, bound_ms and library_ms "

@@ -97,11 +97,6 @@ def test_validate_args_rejects_the_same_argv(argv):
 REJECTED = [
     (["--mesh_data", "2"], "--mesh_data"),
     (["--mesh_model", "2"], "--mesh_model"),
-    (["--steps_per_dispatch", "2"], "--steps_per_dispatch"),
-    (["--eval_capacity", "0.5"], "--eval_capacity"),
-    (["--capacity_groups", "2"], "--capacity_groups"),
-    (["--profile_dir", "/x"], "--profile_dir"),
-    (["--pred_files", "a.npy"], "--pred_files"),
     (["--multiprocessing-distributed"], "--multiprocessing-distributed"),
     (["--gpu", "0,1"], "--gpu"),
 ]
@@ -123,6 +118,11 @@ PORTED = [
     (["--dataset", "kinetics-sounds", "--datadir", "/r", "/s"],
      lambda c: c.data.dataset == "kinetics-sounds"
      and c.data.datadir == ["/r", "/s"]),
+    (["--steps_per_dispatch", "2"], lambda c: c.optim.steps_per_dispatch == 2),
+    (["--eval_capacity", "0.5"], lambda c: c.model.eval_capacity == 0.5),
+    (["--capacity_groups", "2"], lambda c: c.model.capacity_groups == 2),
+    (["--profile_dir", "/x"], lambda c: c.runtime.profile_dir == "/x"),
+    (["--pred_files", "a.npy"], lambda c: c.runtime.pred_files == ["a.npy"]),
 ]
 
 

@@ -2,8 +2,9 @@
 kernels, the depthwise kernel (forward and flipped-tap input gradient) and
 the stage-boundary prototype kernel against their plain versions, the
 tiny float32 eval and train steps on the card against the CPU, with the
-depthwise flag off and on, and the device preprocessing and a tiny
-train_adamml run on the card against the CPU.
+depthwise flag off and on, the device preprocessing and a tiny
+train_adamml run on the card against the CPU, and the multi-step dispatch's
+replayed CUDA graph against the same steps run as single steps.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The file imports no JAX, so it also runs on a machine that
@@ -32,6 +33,7 @@ from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
 from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
+                                          make_adamml_multi_step,
                                           make_adamml_train_step)
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
@@ -655,3 +657,95 @@ def test_native_and_pil_decode_on_the_card_host(tmp_path):
     np.testing.assert_array_equal(out[False]["hw"], [256, 340])
     diff = out[True]["frames"].astype(int) - out[False]["frames"].astype(int)
     assert np.abs(diff).max() <= 1
+
+
+def _train_snapshot(model, state):
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            [{p: {k: v.clone() for k, v in st.items()}
+              for p, st in opt.state.items()}
+             for opt in (state.main_opt, state.policy_opt)], state.step)
+
+
+def _train_restore(model, state, snap):
+    model.load_state_dict(snap[0])
+    for opt, saved in zip((state.main_opt, state.policy_opt), snap[1]):
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                v.copy_(saved[p][k])
+    state.step = snap[2]
+
+
+def _replay_vs_single_steps(phase: str, use_pallas_dw: bool):
+    """The tiny float32 config, K = 2: the first dispatch runs 2 single
+    steps, the second captures the CUDA graph and replays it; from the
+    snapshot between them 2 calls of make_adamml_train_step (the plain
+    single step that K = 1 runs) leave the same parameters, BN statistics,
+    optimizer state, step and metrics, bit for bit. Later dispatches
+    replay; new optimizers run single steps again (the curriculum's stage
+    boundaries)."""
+    cfg = flagship_cfg(tiny=True)
+    cfg.model.use_pallas_dw = use_pallas_dw
+    model, _ = build_model(cfg)
+    state = TrainState(
+        build_optimizer("main", cfg.optim, model.main_net.parameters()),
+        build_optimizer("policy", cfg.optim, model.policy_net.parameters()))
+    kw = dict(flags=(StageFlags.main_phase() if phase == "main"
+                     else StageFlags.policy_phase()),
+              penalty_type="blockdrop", gammas=10.0, clip_gradient=None)
+    multi = make_adamml_multi_step(model, **kw)
+    single = make_adamml_train_step(model, **kw)
+
+    def batches(seed):
+        xs = [example_inputs(cfg, batch=4, seed=seed + i) for i in range(2)]
+        return ([torch.stack([x[m] for x in xs]) for m in range(2)],
+                torch.arange(8, device="cuda").reshape(2, 4) % 5)
+
+    args = (1e-3, 1e-2, [1.0, 0.05])
+    multi(state, *batches(10), *args, 3)
+    snap = _train_snapshot(model, state)
+    got_m = multi(state, *batches(20), *args, 4)
+    assert (multi.eager_dispatches, multi.replays) == (1, 1)
+    got = _train_snapshot(model, state)
+    _train_restore(model, state, snap)
+    xs, ts = batches(20)
+    ms = [single(state, [x[s] for x in xs], ts[s], *args, 4)
+          for s in range(2)]
+    want_m = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    want = _train_snapshot(model, state)
+    assert got[2] == want[2] == snap[2] + 2
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for a, b in zip(got[1], want[1]):
+        for p in b:
+            for k in b[p]:
+                assert torch.equal(a[p][k], b[p][k]), k
+    for k in want_m:
+        assert torch.equal(got_m[k], want_m[k]), k
+    multi(state, *batches(30), *args, 5)
+    assert (multi.eager_dispatches, multi.replays) == (1, 2)
+    state.main_opt = build_optimizer("main", cfg.optim,
+                                     model.main_net.parameters())
+    state.policy_opt = build_optimizer("policy", cfg.optim,
+                                       model.policy_net.parameters())
+    multi(state, *batches(40), *args, 6)
+    assert (multi.eager_dispatches, multi.replays) == (2, 2)
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_multi_step_replay_equals_eager(phase, monkeypatch):
+    """A replay equals the same K steps run as single steps
+    (``_replay_vs_single_steps``). cuDNN deterministic: at these float32
+    shapes its default algorithms sum in an order that changes from run to
+    run, so two runs of the single steps would differ too."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _replay_vs_single_steps(phase, use_pallas_dw=False)
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch):
+    """As above with use_pallas_dw=True: the depthwise kernel (and in the
+    policy phase the trunks' remat) under capture."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _replay_vs_single_steps(phase, use_pallas_dw=True)

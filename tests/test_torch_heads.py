@@ -113,8 +113,23 @@ def test_joint_main_net(fusion, learnable):
 
 
 def test_joint_main_net_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="eval_capacity"):
-        JointMainNet(("rgb", "sound"), depth=18, eval_capacity=0.5)
+    """eval_capacity (ported since): the net builds and packs, its
+    backbones running on cap rows at eval and on all rows in train mode
+    (tests/test_torch_capacity.py holds it against JAX). fc2 fusion refuses
+    decisions."""
+    tmod = init_model(JointMainNet(("rgb", "sound"), depth=18,
+                                   num_classes=5, eval_capacity=0.5))
+    rows = []
+    for m in ("rgb", "sound"):
+        getattr(tmod, f"net_{m}").register_forward_hook(
+            lambda mod, args, out: rows.append(args[0].shape[0]))
+    x = [torch.randn(4, 2, 16, 16, 3), torch.randn(4, 1, 32, 16, 1)]
+    dec = torch.tensor([[1.0, 1.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+    with torch.no_grad():
+        out = tmod(x, dec)
+        assert rows == [2, 2] and tuple(out.shape) == (4, 5)
+        tmod(x, dec, train=True, generator=torch.Generator())
+    assert rows[2:] == [4, 4]
     tmod = JointMainNet(("rgb",), depth=18, fusion_point="fc2")
     with pytest.raises(ValueError, match="logits fusion"):
         tmod([torch.zeros(1, 1, 8, 8, 3)], torch.ones(1, 1))
