@@ -11,7 +11,8 @@ utils/utils.py:89-96):
   <dir>/checkpoint<sfx>_NN    -- per-epoch copy when epoch is given
   <dir>/model_best            -- copy on val-top-1 improvement
 
-each holding ``state.pt`` and ``meta.json``. The meta carries
+each holding ``state.pt`` and ``meta.json``. Rank 0 writes them;
+``load_checkpoint`` runs on every rank, onto its own device. The meta carries
 ``optim_layout: "torch"``; ``check_layout`` refuses any other tag, so an
 orbax checkpoint of the JAX package (tag "fused" or "per_tensor") is named
 as such instead of failing inside ``torch.load``.
@@ -27,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import barrier
 from ..train.train_state import TrainState
 
 _META = "meta.json"
@@ -36,10 +38,21 @@ LAYOUT = "torch"
 
 def save_checkpoint(model: nn.Module, state: TrainState, meta: dict,
                     filepath: str, is_best: bool = False,
-                    epoch: Optional[int] = None, suffix: str = "") -> str:
+                    epoch: Optional[int] = None, suffix: str = "",
+                    rank: int = 0) -> str:
     """Write the latest checkpoint (+ per-epoch / model_best copies) and
-    return its path."""
+    return its path. In a data-parallel run every rank calls it and rank 0
+    writes, then all wait for it (a barrier, as the reference's rank-0 save
+    and dist.barrier, reference train_adamml.py:355,471,583), so no rank
+    reads a checkpoint before it exists."""
     path = os.path.abspath(os.path.join(filepath, "checkpoint"))
+    if rank == 0:
+        _write(model, state, meta, filepath, path, is_best, epoch, suffix)
+    barrier()
+    return path
+
+
+def _write(model, state, meta, filepath, path, is_best, epoch, suffix):
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
@@ -59,7 +72,6 @@ def save_checkpoint(model: nn.Module, state: TrainState, meta: dict,
         if os.path.exists(dst):
             shutil.rmtree(dst)
         shutil.copytree(path, dst)
-    return path
 
 
 def peek_meta(path: str) -> dict:

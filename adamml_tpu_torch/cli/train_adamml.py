@@ -1,11 +1,14 @@
-"""Multi-modal AdaMML training CLI on one CUDA card (reference
+"""Multi-modal AdaMML training CLI on CUDA cards (reference
 train_adamml.py; ``adamml_tpu/cli/train_adamml.py``).
 
-The JAX package's flag surface (``configs/config.py::arg_parser``); flags
-with no meaning on one card, or whose module is not ported yet, fail with a
-ValueError that names them (README.md's port section). Runs on CUDA
-(``--gpu``/``--gpu_id`` pick the device) unless ``main`` is given
-``device="cpu"``.
+The JAX package's flag surface (``configs/config.py::arg_parser``); flag
+values the port cannot run fail with a ValueError that names them
+(README.md's port section). Runs on CUDA (``--gpu``/``--gpu_id`` pick the
+device) unless ``main`` is given ``device="cpu"``. A data-parallel run has
+one process per rank (parallel/mesh.py): started by hand with
+``--dist-url tcp://HOST:PORT --world-size W --rank R`` (or ``--hostfile``),
+or spawned one per device with ``--multiprocessing-distributed``; NCCL on
+CUDA, gloo on the CPU, unless ``--dist-backend`` names one.
 
 Usage (synthetic data; mirrors reference README.md:86-95):
   python -m adamml_tpu_torch.cli.train_adamml --dataset synthetic \
@@ -18,46 +21,17 @@ from __future__ import annotations
 
 import sys
 
-from ..configs.config import (arg_parser, config_from_args, cuda_device,
+from ..configs.config import (arg_parser, config_from_args, run_devices,
                               validate_args)
+from ..parallel import mesh
+from ..parallel.mesh import parse_hostfile  # noqa: F401  (the CLI's name)
 
 
-def parse_hostfile(lines, current_node: str):
-    """Derive (coordinator_address, num_processes, process_id) from hostfile
-    lines, mirroring the reference's rank derivation (reference
-    train_adamml.py:40-50: line index = rank, first line's hostname = master,
-    port 10598) with two hardenings: the hostname match is EXACT on the
-    line's first whitespace token (the reference's `curr in node` substring
-    test lets "node1" match "node10"), and an unmatched host is a loud error
-    instead of a silent rank-0 fallback."""
-    nodes = [x.strip() for x in lines if x.strip()]
-    if not nodes:
-        raise RuntimeError("hostfile is empty")
-    hostnames = [n.split()[0].split(".")[0] for n in nodes]
-    master = nodes[0].split()[0]
-    curr = current_node.split(".")[0]
-    matches = [i for i, h in enumerate(hostnames) if h == curr]
-    if not matches:
-        raise RuntimeError(
-            f"current node {curr!r} not found in hostfile "
-            f"(hosts: {hostnames}); refusing to guess a rank")
-    if len(matches) > 1:
-        raise RuntimeError(
-            f"current node {curr!r} appears {len(matches)} times in the "
-            f"hostfile; ranks would be ambiguous")
-    return f"{master}:10598", len(nodes), matches[0]
-
-
-def init_distributed(cfg) -> None:
-    """One process on one card: a hostfile or a world size above 1 asks
-    for a multi-process run, which is not ported yet (ROADMAP A.16)."""
-    r = cfg.runtime
-    if r.hostfile:
-        raise ValueError("--hostfile: multi-process runs are not ported to "
-                         "the CUDA port yet (ROADMAP A.16)")
-    if r.world_size > 1:
-        raise ValueError("--world-size > 1: multi-process runs are not "
-                         "ported to the CUDA port yet (ROADMAP A.16)")
+def init_distributed(cfg, device="cpu", backend=None, timeout_s=None):
+    """Join the process group the flags ask for (``--hostfile``,
+    ``--dist-url --world-size --rank``; parallel/mesh.py): a no-op for one
+    process."""
+    return mesh.init_distributed(cfg, device, backend, timeout_s)
 
 
 def val_labels(cfg):
@@ -105,28 +79,37 @@ def main(argv=None, device=None) -> int:
     cfg.model.backbone_net = "adamml"
     if cfg.runtime.pred_files:
         return run_ensemble_scoring(cfg)
-    init_distributed(cfg)
+    return mesh.launch(run, cfg, run_devices(args, device),
+                       args.dist_backend, args.multiprocessing_distributed)
 
-    from ..train.curriculum import AdaMMLTrainer
 
-    trainer = AdaMMLTrainer(cfg, cuda_device(args) if device is None
-                            else device)
-    if cfg.runtime.show_model:
-        from ..models.model_builder import count_params_flops_summary
+def run(cfg, device, backend=None) -> int:
+    """One process of the run: join the group, train or evaluate, leave."""
+    joined = init_distributed(cfg, device, backend).backend is not None
+    try:
+        from ..train.curriculum import AdaMMLTrainer
 
-        print(trainer.model)
-        print(count_params_flops_summary(trainer.model, cfg))
+        trainer = AdaMMLTrainer(cfg, device)
+        if cfg.runtime.show_model:
+            from ..models.model_builder import count_params_flops_summary
+
+            if trainer.rank == 0:
+                print(trainer.model)
+                print(count_params_flops_summary(trainer.model, cfg))
+            return 0
+        if cfg.runtime.evaluate:
+            from ..utils.logging import RankZeroLogger
+
+            logger = RankZeroLogger(trainer.log_folder, rank=trainer.rank,
+                                    filename="evaluate_log.log", append=True)
+            trainer.evaluate(logger)
+            logger.close()
+            return 0
+        trainer.run()
         return 0
-    if cfg.runtime.evaluate:
-        from ..utils.logging import RankZeroLogger
-
-        logger = RankZeroLogger(trainer.log_folder, rank=trainer.rank,
-                                filename="evaluate_log.log", append=True)
-        trainer.evaluate(logger)
-        logger.close()
-        return 0
-    trainer.run()
-    return 0
+    finally:
+        if joined:
+            mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""Unimodal pretraining CLI on one CUDA card (reference train_unimodal.py;
+"""Unimodal pretraining CLI on CUDA cards (reference train_unimodal.py;
 ``adamml_tpu/cli/train_unimodal.py``).
 
 Trains a single backbone (resnet for rgb/flow/rgbdiff, sound_mobilenet_v2
 for sound). Mean/std overrides are validated like the reference
 (train_unimodal.py:100-117). Runs on CUDA unless ``main`` is given
-``device="cpu"``.
+``device="cpu"``; multi-process runs as train_adamml's.
 
   python -m adamml_tpu_torch.cli.train_unimodal --dataset synthetic \
       --modality rgb --backbone_net resnet -d 50 --groups 8 -b 8 ...
@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import sys
 
-from ..configs.config import (arg_parser, config_from_args, cuda_device,
+from ..configs.config import (arg_parser, config_from_args, run_devices,
                               validate_args)
+from ..parallel import mesh
 from .train_adamml import init_distributed
 
 
@@ -37,20 +38,29 @@ def main(argv=None, device=None) -> int:
     if cfg.runtime.pretrained or cfg.runtime.unimodality_pretrained:
         raise ValueError("--pretrained and --unimodality_pretrained load "
                          "into the AdaMML model: train_adamml takes them")
-    init_distributed(cfg)
+    return mesh.launch(run, cfg, run_devices(args, device),
+                       args.dist_backend, args.multiprocessing_distributed)
 
-    from ..train.curriculum import UnimodalTrainer
 
-    trainer = UnimodalTrainer(cfg, cuda_device(args) if device is None
-                              else device)
-    if cfg.runtime.show_model:
-        from ..models.model_builder import count_params_flops_summary
+def run(cfg, device, backend=None) -> int:
+    """One process of the run: join the group, train, leave."""
+    joined = init_distributed(cfg, device, backend).backend is not None
+    try:
+        from ..train.curriculum import UnimodalTrainer
 
-        print(trainer.model)
-        print(count_params_flops_summary(trainer.model, cfg))
+        trainer = UnimodalTrainer(cfg, device)
+        if cfg.runtime.show_model:
+            from ..models.model_builder import count_params_flops_summary
+
+            if trainer.rank == 0:
+                print(trainer.model)
+                print(count_params_flops_summary(trainer.model, cfg))
+            return 0
+        trainer.run()
         return 0
-    trainer.run()
-    return 0
+    finally:
+        if joined:
+            mesh.shutdown()
 
 
 if __name__ == "__main__":

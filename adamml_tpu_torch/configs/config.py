@@ -4,8 +4,8 @@ A copy of the typed dataclass configs of ``adamml_tpu/configs/config.py``
 (same fields, defaults, constants and ``arch_name``), so a config built for
 one package reads the same in the other, and of its argument parser: the
 same flags, so a training command of either package parses in the other.
-``validate_args`` gives each flag that has no meaning on one CUDA card, or
-whose module is not ported yet, a loud ``ValueError`` that names it.
+``validate_args`` gives each flag value the port cannot run a loud
+``ValueError`` that names it.
 ``flagship_cfg`` is the port's own copy of the canonical AdaMML rgb+sound
 configuration.
 """
@@ -294,7 +294,7 @@ def arg_parser() -> argparse.ArgumentParser:
                         "rows per modality whose backbone runs")
     p.add_argument("--capacity_groups", default=None, type=int,
                    help="pin the eval_capacity packing-group count "
-                        "(default: one group on one card)")
+                        "(default: one group a rank)")
     p.add_argument("--use_pallas_dw", action="store_true",
                    help="every 3x3 depthwise layer through the hand-written "
                         "CUDA depthwise kernel")
@@ -391,26 +391,27 @@ def arg_parser() -> argparse.ArgumentParser:
 
     # devices and processes
     p.add_argument("--gpu", default=None, type=str,
-                   help="the CUDA device to run on")
+                   help="the CUDA device(s) to run on, comma-separated")
     p.add_argument("--gpu_id", default=None, type=str,
-                   help="the CUDA device to run on")
+                   help="the CUDA device(s) to run on, comma-separated")
     p.add_argument("--disable_cudnn_benchmark", action="store_true",
                    help="accepted; the port never turns cudnn.benchmark on")
     p.add_argument("--dist-backend", dest="dist_backend", default=None,
-                   type=str, help=argparse.SUPPRESS)
+                   type=str, help="nccl (default on CUDA) or gloo")
     p.add_argument("--multiprocessing-distributed", "--multiprocessing_distributed",
                    dest="multiprocessing_distributed", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="spawn one process per device (--gpu ids, else "
+                        "every visible card)")
     p.add_argument("--sync-bn", dest="sync_bn", action="store_true",
-                   help="no effect on one card (it names the run)")
+                   help="BN moments over all ranks (default: per rank)")
     p.add_argument("--world-size", dest="world_size", default=1, type=int)
     p.add_argument("--rank", default=0, type=int)
     p.add_argument("--dist-url", dest="dist_url", default="", type=str)
     p.add_argument("--hostfile", default="", type=str)
     p.add_argument("--mesh_data", default=-1, type=int,
-                   help="only -1 or 1 on one card")
+                   help="-1 or the world size: one data shard a rank")
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="only 1 on one card")
+                   help="only 1: tensor parallelism is not ported")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--profile_dir", default="", type=str,
                    help="write a torch.profiler trace of steps 2-4 of each "
@@ -423,21 +424,24 @@ def arg_parser() -> argparse.ArgumentParser:
 # Flags the port rejects, each with the reason (README.md's port section):
 # (flag, whether the parsed value asks for it, reason)
 _REJECTED = (
-    ("--mesh_data", lambda a: a.mesh_data > 1,
-     "one card runs one data shard (multi-process runs are ROADMAP A.16)"),
     ("--mesh_model", lambda a: a.mesh_model > 1,
-     "one card holds the whole model"),
-    ("--multiprocessing-distributed",
-     lambda a: a.multiprocessing_distributed,
-     "multi-process runs are not ported yet (ROADMAP A.16)"),
+     "tensor parallelism, the column-sharded wide kernels, is not ported "
+     "yet (ROADMAP A.20)"),
 )
+
+
+def gpu_ids(args: argparse.Namespace) -> List[str]:
+    """The CUDA device ids ``--gpu``/``--gpu_id`` name, in order."""
+    pick = args.gpu_id or args.gpu
+    return [g.strip() for g in pick.split(",") if g.strip()] if pick else []
 
 
 def validate_args(parser: argparse.ArgumentParser,
                   args: argparse.Namespace) -> None:
     """The JAX package's checks (the same argv fails through
-    ``parser.error``), then a ``ValueError`` naming each flag that has no
-    meaning on one CUDA card or whose module is not ported yet."""
+    ``parser.error``), then a ``ValueError`` naming each flag that the port
+    cannot run: --mesh_model above 1, --mesh_data other than -1 or the
+    world size, and two devices outside --multiprocessing-distributed."""
     if args.threed_data:
         parser.error("--threed_data requires a 3D backbone; none is in the "
                      "model table (the reference's default 's3d' is absent "
@@ -462,28 +466,57 @@ def validate_args(parser: argparse.ArgumentParser,
     if rejected:
         raise ValueError("; ".join(f"{flag} is not supported by the CUDA "
                                    f"port: {why}" for flag, why in rejected))
-    gpus = [g for arg in (args.gpu, args.gpu_id) if arg
-            for g in arg.split(",") if g.strip()]
-    if len(set(gpus)) > 1:
-        raise ValueError(f"--gpu/--gpu_id name {len(set(gpus))} devices; the "
-                         "port runs one process on one card (ROADMAP A.16)")
+    # the world size is known here unless a hostfile or the spawn sets it
+    # (parallel/mesh.py::init_distributed checks again then)
+    if (not args.hostfile and not args.multiprocessing_distributed
+            and args.mesh_data not in (-1, args.world_size)):
+        raise ValueError(f"--mesh_data {args.mesh_data} must be -1 or the "
+                         f"world size ({args.world_size}): the data mesh is "
+                         f"one rank a process")
+    ids = gpu_ids(args)
+    if len(set(ids)) != len(ids):
+        raise ValueError(f"--gpu/--gpu_id name a device twice: {ids}")
+    if len(ids) > 1 and not args.multiprocessing_distributed:
+        raise ValueError(f"--gpu/--gpu_id name {len(ids)} devices: one "
+                         f"process runs on one device; "
+                         f"--multiprocessing-distributed spawns one process "
+                         f"on each")
     if args.num_crops > 1 and all(m == "sound" for m in args.modality):
         print("WARNING: --num_crops > 1 with a sound-only modality set "
               "replicates spectrogram rows (sound has no spatial crops); "
               "results are identical to --num_crops 1 at num_crops x the "
               "eval compute", flush=True)
-    for flag, val in (("--disable_cudnn_benchmark",
-                       args.disable_cudnn_benchmark),
-                      ("--dist-backend", args.dist_backend)):
-        if val:
-            print(f"WARNING: {flag} has no effect in the port (one process, "
-                  f"cudnn.benchmark left off)", flush=True)
+    if args.disable_cudnn_benchmark:
+        print("WARNING: --disable_cudnn_benchmark has no effect in the port "
+              "(cudnn.benchmark left off)", flush=True)
 
 
-def cuda_device(args: argparse.Namespace) -> str:
-    """The CUDA device ``--gpu``/``--gpu_id`` name (default: device 0)."""
-    pick = args.gpu_id or args.gpu
-    return f"cuda:{pick.split(',')[0].strip()}" if pick else "cuda"
+def cuda_device(args: argparse.Namespace, local_rank: int = 0) -> str:
+    """The CUDA device of the process with ``local_rank`` on this node:
+    the id ``--gpu``/``--gpu_id`` name at that index (default: the current
+    device)."""
+    ids = gpu_ids(args)
+    return f"cuda:{ids[local_rank]}" if ids else "cuda"
+
+
+def run_devices(args: argparse.Namespace, device=None) -> List[str]:
+    """The devices a CLI runs on, one process each: the one ``device``
+    names (the CPU for the tests), else ``cuda_device``; with
+    --multiprocessing-distributed every id --gpu names, else every visible
+    card (on the CPU, one process per named id, else one)."""
+    ids = gpu_ids(args)
+    if not args.multiprocessing_distributed:
+        return [cuda_device(args) if device is None else str(device)]
+    if device is not None:
+        return [str(device)] * max(1, len(ids))
+    if ids:
+        return [cuda_device(args, i) for i in range(len(ids))]
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
@@ -540,7 +573,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         after_softmax=args.after_softmax, pred_files=list(args.pred_files),
         pred_weights=args.pred_weights, sync_bn=args.sync_bn,
         world_size=args.world_size, rank=args.rank, dist_url=args.dist_url,
-        hostfile=args.hostfile, resume=args.resume, auto_resume=args.auto_resume,
+        hostfile=args.hostfile,
+        multiprocessing_distributed=args.multiprocessing_distributed,
+        resume=args.resume, auto_resume=args.auto_resume,
         pretrained=args.pretrained,
         unimodality_pretrained=list(args.unimodality_pretrained),
         mesh_data=args.mesh_data, mesh_model=args.mesh_model, seed=args.seed,

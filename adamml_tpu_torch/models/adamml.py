@@ -17,6 +17,7 @@ from torch import nn
 
 from ..configs.config import input_channels_for
 from ..ops.augment import policy_stream
+from ..parallel.mesh import local_noise
 from .joint_net import JointMainNet
 from .policy_net import PolicyNet
 
@@ -50,7 +51,7 @@ class AdaMML(nn.Module):
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
                  remat_policy: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_groups: int = 1):
         super().__init__()
         self.modality = tuple(modality)
         self.rng_policy = rng_policy
@@ -61,7 +62,7 @@ class AdaMML(nn.Module):
             p_mod, [input_channels_for(m) for m in p_mod],
             causality_modeling=causality_modeling,
             use_pallas_dw=use_pallas_dw, remat_trunk=remat_policy,
-            dtype=dtype)
+            dtype=dtype, bn_groups=bn_groups)
         self.main_net = JointMainNet(
             m_mod, depth=depth, num_classes=num_classes, dropout=dropout,
             without_t_stride=without_t_stride, pooling_method=pooling_method,
@@ -70,7 +71,7 @@ class AdaMML(nn.Module):
             eval_capacity=eval_capacity, capacity_groups=capacity_groups,
             use_pallas_dw=use_pallas_dw,
             fused_tpool=fused_tpool, remat=remat, remat_stages=remat_stages,
-            dtype=dtype)
+            dtype=dtype, bn_groups=bn_groups)
 
     def forward(self, x: Sequence[torch.Tensor],
                 temperature=INIT_TEMPERATURE, train: bool = False,
@@ -89,8 +90,9 @@ class AdaMML(nn.Module):
 
         if self.rng_policy:
             # RNG baseline (reference models/adamml.py:74-78)
-            u = torch.rand((s, num_modality, n), generator=generator,
-                           device=x[0].device)
+            u = local_noise(lambda shape: torch.rand(
+                shape, generator=generator, device=x[0].device),
+                (s, num_modality, n), dim=2)
             decisions = (u > self.rng_threshold).float()
         else:
             p_x = []

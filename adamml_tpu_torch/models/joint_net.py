@@ -45,7 +45,7 @@ class JointMainNet(nn.Module):
                  capacity_groups: int = 1,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_groups: int = 1):
         super().__init__()
         if fusion_point not in ("logits", "fc2"):
             raise ValueError(f"unknown fusion_point {fusion_point!r}")
@@ -61,7 +61,8 @@ class JointMainNet(nn.Module):
             if m == "sound":
                 net = MobileNetV2(num_classes=num_classes, dropout=dropout,
                                   use_pallas_dw=use_pallas_dw, dtype=dtype,
-                                  input_channels=1, head=logits_head)
+                                  input_channels=1, head=logits_head,
+                                  bn_groups=bn_groups)
                 feat_dim += net.last_channel
             else:
                 net = ResNetTSN(depth=depth, num_classes=num_classes,
@@ -71,7 +72,8 @@ class JointMainNet(nn.Module):
                                 fused_tpool=fused_tpool,
                                 input_channels=input_channels_for(m),
                                 head=logits_head, remat=remat,
-                                remat_stages=remat_stages)
+                                remat_stages=remat_stages,
+                                bn_groups=bn_groups)
                 feat_dim += net.feature_dim
             self.add_module(f"net_{m}", net)
         if logits_head:

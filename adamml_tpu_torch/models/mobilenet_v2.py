@@ -79,7 +79,7 @@ class _ConvBNReLU6(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  strides: int = 1, groups: int = 1,
                  dtype: torch.dtype = torch.float32,
-                 use_pallas_dw: bool = False):
+                 use_pallas_dw: bool = False, bn_groups: int = 1):
         super().__init__()
         if (use_pallas_dw and groups > 1 and groups == features
                 and kernel == 3):
@@ -87,7 +87,7 @@ class _ConvBNReLU6(nn.Module):
         else:
             self.conv = Conv(in_features, features, kernel, strides, groups,
                              dtype)
-        self.bn = GroupedBatchNorm(features, dtype=dtype)
+        self.bn = GroupedBatchNorm(features, dtype=dtype, groups=bn_groups)
 
     def forward(self, x, train: bool, seq_groups: int = 1,
                 seq_inner: int = 1):
@@ -102,16 +102,19 @@ class InvertedResidual(nn.Module):
 
     def __init__(self, inp: int, features: int, strides: int,
                  expand_ratio: int, dtype: torch.dtype,
-                 use_pallas_dw: bool = False):
+                 use_pallas_dw: bool = False, bn_groups: int = 1):
         super().__init__()
         hidden = int(round(inp * expand_ratio))
         self.use_res = strides == 1 and inp == features
-        self.pw = (_ConvBNReLU6(inp, hidden, 1, 1, dtype=dtype)
+        self.pw = (_ConvBNReLU6(inp, hidden, 1, 1, dtype=dtype,
+                                bn_groups=bn_groups)
                    if expand_ratio != 1 else None)
         self.dw = _ConvBNReLU6(hidden, hidden, 3, strides, groups=hidden,
-                               dtype=dtype, use_pallas_dw=use_pallas_dw)
+                               dtype=dtype, use_pallas_dw=use_pallas_dw,
+                               bn_groups=bn_groups)
         self.pw_linear = Conv(hidden, features, 1, dtype=dtype)
-        self.bn_linear = GroupedBatchNorm(features, dtype=dtype)
+        self.bn_linear = GroupedBatchNorm(features, dtype=dtype,
+                                          groups=bn_groups)
 
     def forward(self, x, train: bool, seq_groups: int = 1,
                 seq_inner: int = 1):
@@ -135,14 +138,15 @@ class MobileNetV2(nn.Module):
                  dropout: float = 0.5, temporal_pooling: bool = False,
                  use_pallas_dw: bool = False,
                  dtype: torch.dtype = torch.float32, input_channels: int = 1,
-                 head: bool = True):
+                 head: bool = True, bn_groups: int = 1):
         super().__init__()
         self.dropout = dropout
         self.temporal_pooling = temporal_pooling
         self.dtype = dtype
         self.last_channel = make_divisible(LAST_CHANNEL * max(1.0, width_mult))
         inp = make_divisible(32 * width_mult)
-        self.features_0 = _ConvBNReLU6(input_channels, inp, 3, 2, dtype=dtype)
+        self.features_0 = _ConvBNReLU6(input_channels, inp, 3, 2, dtype=dtype,
+                                       bn_groups=bn_groups)
         # (block name, output channels, whether a temporal pool precedes it)
         self.blocks = []
         idx = 1
@@ -152,13 +156,13 @@ class MobileNetV2(nn.Module):
                 name = f"features_{idx}"
                 self.add_module(name, InvertedResidual(
                     inp, out_ch, s if i == 0 else 1, t, dtype,
-                    use_pallas_dw=use_pallas_dw))
+                    use_pallas_dw=use_pallas_dw, bn_groups=bn_groups))
                 self.blocks.append(
                     (name, i == 0 and ch in TEMPORAL_POOL_CHANNELS))
                 inp = out_ch
                 idx += 1
         self.conv_last = _ConvBNReLU6(inp, self.last_channel, 1, 1,
-                                      dtype=dtype)
+                                      dtype=dtype, bn_groups=bn_groups)
         self.classifier = (Dense(self.last_channel, num_classes, dtype)
                            if head else None)
 

@@ -15,6 +15,7 @@ from torch import nn
 
 from ..configs.config import ExperimentConfig, arch_name
 from ..ops.spectrogram import SpectrogramConfig
+from ..parallel.mesh import active
 from ..utils.device import resolve_device
 from .adamml import AdaMML
 from .layers import Conv, Dense
@@ -30,28 +31,53 @@ def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
             else torch.float32)
 
 
+def _data_shards(cfg: ExperimentConfig) -> int:
+    """Size of the data mesh: one shard a rank (parallel/mesh.py writes the
+    world size into ``cfg.runtime``)."""
+    return max(1, cfg.runtime.world_size)
+
+
 def _capacity_groups(cfg: ExperimentConfig) -> int:
-    """Packing-group count for eval_capacity (models/joint_net.py): one
-    group per data shard, which is one on one card, unless
-    --capacity_groups pins it, so capacity-eval accuracy does not depend on
-    the device count. The engine's capacity-drop count uses this same
-    resolver (train/engine.py validate)."""
-    if cfg.model.capacity_groups is not None:
-        if cfg.model.capacity_groups < 1:
-            raise ValueError(
-                f"--capacity_groups must be >= 1, got "
-                f"{cfg.model.capacity_groups}")
-        return cfg.model.capacity_groups
+    """The global packing-group count for eval_capacity
+    (models/joint_net.py): one group per data shard, as in the JAX
+    package, unless --capacity_groups pins it, so capacity-eval accuracy
+    does not depend on the device count. Each rank packs its own rows in
+    G / W of them, so G must be a multiple of the world size W (packing
+    across ranks is ROADMAP A.21). The engine's capacity-drop count uses
+    this same resolver (train/engine.py validate)."""
+    shards = _data_shards(cfg)
+    g = cfg.model.capacity_groups
+    if g is None:
+        return shards
+    if g < 1:
+        raise ValueError(f"--capacity_groups must be >= 1, got {g}")
+    if g % shards:
+        raise ValueError(
+            f"--capacity_groups {g} is not a multiple of the world size "
+            f"{shards}: packing across ranks is not ported (ROADMAP A.21)")
+    return g
+
+
+def _bn_groups(cfg: ExperimentConfig) -> int:
+    """Moment groups of each rank's GroupedBatchNorm: 1. A rank's rows are
+    one data shard, so its local moments are the JAX package's per-shard
+    moments (per-replica BN, the reference's default); --sync-bn makes
+    them global across ranks instead (models/norm.py ``sync``)."""
     return 1
 
 
-def build_model(cfg: ExperimentConfig, device: Device = None
-                ) -> Tuple[nn.Module, str]:
+def build_model(cfg: ExperimentConfig, device: Device = None,
+                bn_groups: Optional[int] = None) -> Tuple[nn.Module, str]:
     """(model on ``device``, arch name). Weights are random from
-    ``cfg.runtime.seed`` (``init_model``)."""
+    ``cfg.runtime.seed`` (``init_model``). ``bn_groups`` R > 1 gives every
+    BN R moment groups in one process, the JAX package's one-process data
+    mesh of R shards (the single-process reference of an R-rank run);
+    default ``_bn_groups``. Under --sync-bn in a process group every BN
+    takes its moments over all ranks."""
     dev = resolve_device(device)
     m = cfg.model
     dtype = compute_dtype(cfg)
+    groups = _bn_groups(cfg) if bn_groups is None else bn_groups
     if m.backbone_net == "adamml":
         model = AdaMML(
             modality=tuple(m.modality), num_classes=m.num_classes,
@@ -63,25 +89,31 @@ def build_model(cfg: ExperimentConfig, device: Device = None
             rng_threshold=m.rng_threshold,
             policy_input_size=m.policy_input_size,
             eval_capacity=m.eval_capacity,
-            capacity_groups=_capacity_groups(cfg),
+            capacity_groups=_capacity_groups(cfg) // _data_shards(cfg),
             use_pallas_dw=m.use_pallas_dw,
             fused_tpool=m.fused_tpool, remat=m.remat_backbone,
             remat_stages=m.remat_stages, remat_policy=m.remat_policy,
-            dtype=dtype)
+            dtype=dtype, bn_groups=groups)
     elif m.backbone_net == "resnet":
         model = ResNetTSN(
             depth=m.depth, num_classes=m.num_classes, dropout=m.dropout,
             without_t_stride=m.without_t_stride,
             pooling_method=m.pooling_method, dtype=dtype,
             fused_tpool=m.fused_tpool, input_channels=m.input_channels[0],
-            remat=m.remat_backbone, remat_stages=m.remat_stages)
+            remat=m.remat_backbone, remat_stages=m.remat_stages,
+            bn_groups=groups)
     elif m.backbone_net == "sound_mobilenet_v2":
         model = MobileNetV2(num_classes=m.num_classes, dropout=m.dropout,
                             use_pallas_dw=m.use_pallas_dw, dtype=dtype,
-                            input_channels=m.input_channels[0])
+                            input_channels=m.input_channels[0],
+                            bn_groups=groups)
     else:
         raise ValueError(f"unknown backbone_net {m.backbone_net!r}")
     init_model(model, cfg.runtime.seed)
+    if cfg.runtime.sync_bn and active():
+        for mod in model.modules():
+            if isinstance(mod, GroupedBatchNorm):
+                mod.sync = True
     return model.to(dev), arch_name(cfg)
 
 

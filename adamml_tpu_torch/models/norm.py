@@ -18,6 +18,13 @@ consecutive BN forwards would: ra <- m^S ra + sum_i (1-m) m^(S-1-i) moment_i,
 m = 0.9. They move once per forward: ``update_stats`` is False while a
 checkpointed forward is recomputed (models/remat.py).
 
+``sync`` (set by the model builder for --sync-bn in a process group,
+parallel/mesh.py) takes the moments over every rank's rows: the local
+(S, C) mean and mean of squares are averaged over the ranks by a
+differentiable all-reduce (equal local batches, so that is the global
+sum over the global count), and the running update counts the global
+rows. At world size 1 the average is x / 1, the same bits as without it.
+
 Parameter and buffer names follow torch (weight, bias, running_mean,
 running_var); ckpt/flax_convert.py maps flax's scale/bias/mean/var onto them.
 """
@@ -26,6 +33,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_mean, world
 
 EPSILON = 1e-5  # every BN of the JAX models (adamml_tpu/models/norm.py:39)
 MOMENTUM = 0.9  # adamml_tpu/models/norm.py:38
@@ -41,6 +50,7 @@ class GroupedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
         self.groups = groups
+        self.sync = False
         self.update_stats = True
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -64,9 +74,14 @@ class GroupedBatchNorm(nn.Module):
         red = (1, 3) + tuple(range(4, len(gshape) - 1))
         xf = x.float().reshape(gshape)
         mean = xf.mean(red)                                  # (R, S, C)
-        var = (xf * xf).mean(red) - mean * mean
+        meansq = (xf * xf).mean(red)
+        count = x.numel() // (r * sq * c)
+        if self.sync:
+            mean, meansq = all_reduce_mean(torch.stack([mean, meansq]))
+            count *= world()[0]
+        var = meansq - mean * mean
         if self.update_stats:
-            self._update_running(mean[0], var[0], x.numel() // (r * sq * c))
+            self._update_running(mean[0], var[0], count)
         a = self.weight * torch.rsqrt(var + EPSILON)
         b = self.bias - mean * a
         if return_affine:

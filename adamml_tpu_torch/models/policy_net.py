@@ -68,7 +68,7 @@ class PolicyNet(nn.Module):
     def __init__(self, modality: Sequence[str], input_channels: Sequence[int],
                  causality_modeling: Optional[str] = "lstm",
                  use_pallas_dw: bool = False, remat_trunk: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_groups: int = 1):
         super().__init__()
         if causality_modeling not in (None, "lstm"):
             raise ValueError(
@@ -81,7 +81,8 @@ class PolicyNet(nn.Module):
         for m, ch in zip(self.modality, input_channels):
             self.add_module(f"net_{m}", MobileNetV2(
                 temporal_pooling=True, use_pallas_dw=use_pallas_dw,
-                dtype=dtype, input_channels=ch, head=False))
+                dtype=dtype, input_channels=ch, head=False,
+                bn_groups=bn_groups))
         trunk_dim = getattr(self, f"net_{self.modality[0]}").last_channel
         self.joint_fc1 = Dense(trunk_dim * num_modality, JOINT_DIM, dtype)
         self.joint_fc2 = Dense(JOINT_DIM, JOINT_DIM, dtype)

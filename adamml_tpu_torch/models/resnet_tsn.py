@@ -6,7 +6,9 @@ are NHWC (N*F, H, W, C); a stage-boundary tensor viewed as (N, F, H, W, C)
 is the row-major layout the fused epilogue kernel reads, with no copy.
 In train mode every BN takes per-segment moments (``seq_groups`` = S
 segments folded clip-major into the batch, ``seq_inner`` = the frame count
-at that layer), so the fused kernel gets a grouped (1, S, C) affine.
+at that layer), per replica group with ``bn_groups`` R > 1 (the JAX
+package's per-shard BN of a one-process data mesh), so the fused kernel
+gets a grouped (R, S, C) affine.
 
 Module and parameter names follow the flax tree (conv1, bn1,
 layer{stage}_{block}/cb1/conv, ...), so ckpt/flax_convert.py is a direct
@@ -40,10 +42,11 @@ RESNET_LAYERS = {
 
 class _ConvBN(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int,
-                 strides: int = 1, dtype: torch.dtype = torch.float32):
+                 strides: int = 1, dtype: torch.dtype = torch.float32,
+                 bn_groups: int = 1):
         super().__init__()
         self.conv = Conv(in_features, features, kernel, strides, dtype=dtype)
-        self.bn = GroupedBatchNorm(features, dtype=dtype)
+        self.bn = GroupedBatchNorm(features, dtype=dtype, groups=bn_groups)
 
     def forward(self, x, train: bool, defer_affine: bool = False,
                 seq_groups: int = 1, seq_inner: int = 1):
@@ -61,12 +64,12 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, strides: int,
-                 downsample: bool, dtype: torch.dtype):
+                 downsample: bool, dtype: torch.dtype, bn_groups: int = 1):
         super().__init__()
-        self.cb1 = _ConvBN(inplanes, planes, 3, strides, dtype)
-        self.cb2 = _ConvBN(planes, planes, 3, 1, dtype)
-        self.downsample = (_ConvBN(inplanes, planes, 1, strides, dtype)
-                           if downsample else None)
+        self.cb1 = _ConvBN(inplanes, planes, 3, strides, dtype, bn_groups)
+        self.cb2 = _ConvBN(planes, planes, 3, 1, dtype, bn_groups)
+        self.downsample = (_ConvBN(inplanes, planes, 1, strides, dtype,
+                                   bn_groups) if downsample else None)
 
     def forward(self, x, train: bool, defer_epilogue: bool = False,
                 seq_groups: int = 1, seq_inner: int = 1):
@@ -88,13 +91,13 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, strides: int,
-                 downsample: bool, dtype: torch.dtype):
+                 downsample: bool, dtype: torch.dtype, bn_groups: int = 1):
         super().__init__()
-        self.cb1 = _ConvBN(inplanes, planes, 1, 1, dtype)
-        self.cb2 = _ConvBN(planes, planes, 3, strides, dtype)
-        self.cb3 = _ConvBN(planes, planes * 4, 1, 1, dtype)
-        self.downsample = (_ConvBN(inplanes, planes * 4, 1, strides, dtype)
-                           if downsample else None)
+        self.cb1 = _ConvBN(inplanes, planes, 1, 1, dtype, bn_groups)
+        self.cb2 = _ConvBN(planes, planes, 3, strides, dtype, bn_groups)
+        self.cb3 = _ConvBN(planes, planes * 4, 1, 1, dtype, bn_groups)
+        self.downsample = (_ConvBN(inplanes, planes * 4, 1, strides, dtype,
+                                   bn_groups) if downsample else None)
 
     def forward(self, x, train: bool, defer_epilogue: bool = False,
                 seq_groups: int = 1, seq_inner: int = 1):
@@ -124,7 +127,8 @@ class ResNetTSN(nn.Module):
                  pooling_method: str = "max",
                  dtype: torch.dtype = torch.float32, fused_tpool: bool = True,
                  input_channels: int = 3, head: bool = True,
-                 remat: bool = False, remat_stages: Sequence[int] = ()):
+                 remat: bool = False, remat_stages: Sequence[int] = (),
+                 bn_groups: int = 1):
         super().__init__()
         kind, layers = RESNET_LAYERS[depth]
         block_cls = BasicBlock if kind == "basic" else Bottleneck
@@ -134,12 +138,13 @@ class ResNetTSN(nn.Module):
         self.pooling_method = pooling_method
         self.dtype = dtype
         self.fused_tpool = fused_tpool
+        self.bn_groups = bn_groups
         # blocks whose activations are recomputed in the backward
         # (models/remat.py): every stage, or the 1-based stages listed
         self.remat = remat
         self.remat_stages = tuple(remat_stages)
         self.conv1 = Conv(input_channels, 64, 7, 2, dtype=dtype)
-        self.bn1 = GroupedBatchNorm(64, dtype=dtype)
+        self.bn1 = GroupedBatchNorm(64, dtype=dtype, groups=bn_groups)
         self.stage_blocks: List[List[str]] = []
         inplanes = 64
         for stage, blocks in enumerate(layers):
@@ -152,7 +157,7 @@ class ResNetTSN(nn.Module):
                 name = f"layer{stage + 1}_{b}"
                 self.add_module(name, block_cls(
                     inplanes, planes, strides if b == 0 else 1, needs_ds,
-                    dtype))
+                    dtype, bn_groups))
                 names.append(name)
                 inplanes = planes * block_cls.expansion
             self.stage_blocks.append(names)
@@ -189,7 +194,7 @@ class ResNetTSN(nn.Module):
             # pool into one kernel; grouped rows must split into whole
             # segment cycles for the per-row affine lookup
             n_clips = x.shape[0] // cur_frames
-            total_groups = max(1, seq_groups)
+            total_groups = max(1, self.bn_groups) * max(1, seq_groups)
             fuse_pool = (pool_here and self.fused_tpool
                          and self.pooling_method == "max"
                          and (total_groups <= 1

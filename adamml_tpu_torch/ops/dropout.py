@@ -3,7 +3,9 @@
 Keeps each element with probability 1 - p, drawn as ``rand < 1 - p`` from
 the caller's ``torch.Generator`` on the tensor's device, and scales what it
 keeps by 1/(1 - p). The global generator is never read, so a step seeded
-from (seed, step) repeats exactly.
+from (seed, step) repeats exactly. The rows (axis 0) are the batch's: in a
+data-parallel run the mask is drawn for the global batch and each rank
+keeps its rows (parallel/mesh.py::local_noise).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import local_noise
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
@@ -22,5 +26,6 @@ def dropout(x: torch.Tensor, p: float, train: bool,
     if generator is None:
         raise ValueError("train-mode dropout needs a generator")
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = local_noise(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device), x.shape) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

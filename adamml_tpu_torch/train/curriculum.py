@@ -21,6 +21,13 @@ Where the JAX trainer carries a PRNG key and splits it once per epoch and
 per validation, the port carries an integer seed that advances the same
 number of times (``split_seed``); each sub-seed feeds the steps'
 per-step generators (``steps.step_generators``).
+
+In a data-parallel run (the process group of parallel/mesh.py, joined
+before the trainer is made) each rank loads its shard of every global
+batch of ``-b`` rows, rank 0's model is broadcast once it is built and
+grafted, rank 0 logs and writes the checkpoints and artifacts, and every
+rank validates on the gathered outputs, so all ranks take the same
+decisions (model_best, plateau steps).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..data.synthetic import SyntheticVideoDataset
 from ..data.video_dataset import MultiVideoDataset
 from ..models.adamml import INIT_TEMPERATURE, TEMPERATURE_DECAY
 from ..models.model_builder import _capacity_groups, build_model
+from ..parallel.mesh import broadcast_module, world
 from ..utils.device import resolve_device
 from ..utils.logging import RankZeroLogger
 from ..utils.profiling import StepProfiler
@@ -96,14 +104,32 @@ def _make_dataset(cfg: ExperimentConfig, *, is_train: bool, num_clips: int):
 
 
 def _make_loader(cfg: ExperimentConfig, dataset, *, is_train: bool):
-    """One process: the whole batch, one shard."""
+    """This rank's shard of the global batch of ``-b`` rows: ``-b // W``
+    rows a batch from shard ``rank`` of W (adamml_tpu/train/curriculum.py
+    ``_make_loader``)."""
+    w, rank = world()
+    if cfg.optim.batch_size % w:
+        raise ValueError(f"-b {cfg.optim.batch_size} does not divide over "
+                         f"the {w} ranks")
     return HostDataLoader(
-        dataset, cfg.optim.batch_size, is_train=is_train,
+        dataset, cfg.optim.batch_size // w, is_train=is_train,
         input_size=cfg.data.input_size, augmentor_ver=cfg.data.augmentor_ver,
         scale_range=cfg.data.scale_range,
         disable_scaleup=cfg.data.disable_scaleup,
         workers=cfg.data.workers, seed=cfg.runtime.seed,
-        num_crops=cfg.data.num_crops)
+        num_shards=w, shard_index=rank, num_crops=cfg.data.num_crops)
+
+
+def _rank(cfg: ExperimentConfig) -> int:
+    """This process's rank, after checking that the process group is the
+    one ``cfg`` asks for: a run of W > 1 never quietly runs alone."""
+    w, rank = world()
+    if w != max(1, cfg.runtime.world_size):
+        raise ValueError(
+            f"the config asks for world size {cfg.runtime.world_size}, the "
+            f"process group has {w} (join it first: "
+            f"parallel/mesh.py::init_distributed)")
+    return rank
 
 
 def _resume_path(cfg: ExperimentConfig, log_folder: str, logger
@@ -125,11 +151,11 @@ class AdaMMLTrainer:
     def __init__(self, cfg: ExperimentConfig, device: Device = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank = _rank(cfg)
         self.model, self.arch_name = build_model(cfg, self.device)
         self.modality = cfg.model.major_modality
         self.log_folder = os.path.join(cfg.runtime.logdir or "logs",
                                        self.arch_name)
-        self.rank = 0
 
         # data
         self.train_dataset = _make_dataset(cfg, is_train=True,
@@ -159,9 +185,11 @@ class AdaMMLTrainer:
                 depth=cfg.model.depth, fusion_point=cfg.model.fusion_point)
         if r.pretrained:
             load_pretrained_adamml(self.model, self.state, r.pretrained)
-            print(f"=> using pre-trained model "
-                  f"(temperature: {float(self.state.temperature)})",
-                  flush=True)
+            if self.rank == 0:
+                print(f"=> using pre-trained model "
+                      f"(temperature: {float(self.state.temperature)})",
+                      flush=True)
+        broadcast_module(self.model)
 
         # steps
         common = dict(penalty_type=cfg.model.penalty_type,
@@ -223,7 +251,7 @@ class AdaMMLTrainer:
              is_best: bool = False) -> None:
         save_checkpoint(self.model, self.state, self._meta(epoch, stage),
                         self.log_folder, is_best=is_best, epoch=epoch,
-                        suffix=suffix)
+                        suffix=suffix, rank=self.rank)
 
     def maybe_resume(self, logger) -> None:
         resume = _resume_path(self.cfg, self.log_folder, logger)
@@ -259,7 +287,7 @@ class AdaMMLTrainer:
         warmup (train_adamml.py:340-395), so warmup runs at the base LR."""
         sub = self._next_seed()
         profiler = None
-        if self.cfg.runtime.profile_dir and epoch == 0:
+        if self.cfg.runtime.profile_dir and epoch == 0 and self.rank == 0:
             profiler = StepProfiler(self.cfg.runtime.profile_dir)
         multi_fn = (self.multi_main if step_fn is self.step_main
                     else self.multi_policy)
@@ -306,7 +334,7 @@ class AdaMMLTrainer:
             f"Top@1: {v['top1']:.4f}\tTop@5: {v['top5']:.4f}\t"
             f"mAP: {v['mAP']:.4f}\t"
             f"Speed: {v['batch_time'] * 1000.0:.2f} ms/batch\t"
-            f"flops: {v['flops']:.2f}\tSelection: {sel}")
+            f"flops: {v['flops']:.2f}\tSelection: {sel}", every_rank=True)
         dropped = v.get("capacity_dropped")
         if dropped and any(dropped.values()):
             drops = " ".join(f"{k}:{n}" for k, n in dropped.items())
@@ -314,6 +342,8 @@ class AdaMMLTrainer:
                        f"segments (executed < modeled): {drops}")
 
     def _dump_selections(self, tag: str, epoch: int, selections) -> None:
+        if self.rank:
+            return
         os.makedirs(self.log_folder, exist_ok=True)
         np.savez(os.path.join(self.log_folder,
                               f"all_selection_{tag}_{epoch + 1}.npz"),
@@ -323,6 +353,10 @@ class AdaMMLTrainer:
     def evaluate(self, logger=None) -> Dict:
         """-e / --evaluate path (reference train_adamml.py:203-224)."""
         v = self._validate()
+        if logger is not None:
+            self._log_val(logger, 0, 1, v)
+        if self.rank:
+            return v
         os.makedirs(self.log_folder, exist_ok=True)
         np.savez(os.path.join(self.log_folder, "all_selection.npz"),
                  modality="_".join(self.modality),
@@ -332,8 +366,6 @@ class AdaMMLTrainer:
             f"val_{self.cfg.data.num_crops}crops_"
             f"{self.cfg.data.val_num_clips}clips_"
             f"{self.cfg.data.input_size}_details_.npy"), v["outputs"])
-        if logger is not None:
-            self._log_val(logger, 0, 1, v)
         return v
 
     # -- main run loop ------------------------------------------------------
@@ -443,10 +475,11 @@ class UnimodalTrainer:
                 "--steps_per_dispatch > 1 is not supported by "
                 "train_unimodal; it applies to the AdaMML trainer only")
         self.device = resolve_device(device)
+        self.rank = _rank(cfg)
         self.model, self.arch_name = build_model(cfg, self.device)
+        broadcast_module(self.model)
         self.log_folder = os.path.join(cfg.runtime.logdir or "logs",
                                        self.arch_name)
-        self.rank = 0
 
         self.train_dataset = _make_dataset(cfg, is_train=True,
                                            num_clips=cfg.data.num_clips)
@@ -529,7 +562,8 @@ class UnimodalTrainer:
                 logger.log(
                     f"Val: [{epoch + 1:03d}/{cfg.optim.epochs:03d}]\t"
                     f"Loss: {v['loss']:4.4f}\tTop@1: {v['top1']:.4f}\t"
-                    f"Top@5: {v['top5']:.4f}\tmAP: {v['mAP']:.4f}")
+                    f"Top@5: {v['top5']:.4f}\tmAP: {v['mAP']:.4f}",
+                    every_rank=True)
                 is_best = v["top1"] > self.best_top1
                 self.best_top1 = max(v["top1"], self.best_top1)
             meta = {"epoch": epoch + 1, "arch": self.arch_name,
@@ -538,6 +572,6 @@ class UnimodalTrainer:
             if self.plateau is not None:
                 meta["scheduler"] = self.plateau.state_dict()
             save_checkpoint(self.model, self.state, meta, self.log_folder,
-                            is_best=is_best, epoch=epoch + 1)
+                            is_best=is_best, epoch=epoch + 1, rank=self.rank)
         logger.close()
         return last

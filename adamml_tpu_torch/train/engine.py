@@ -14,6 +14,12 @@ utils/utils.py:483-497), with selection rates and modeled GFLOPs
 (utils/utils.py:502). Rows the loader padded onto the ragged last batch are
 masked out; a batch with padded rows has its loss re-scored on the host
 from its real rows.
+
+In a data-parallel run the train metrics arrive averaged over the ranks
+(train/steps.py) and rank 0 logs them; ``validate`` gathers every rank's
+logits, targets, decisions and batch losses (parallel/mesh.py
+``gather_rows``, the JAX engine's ``_host_global``) before the masks and
+the row order, so every rank returns the same summary.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import gather_rows, world
 from ..utils.flops import flops_computation
 from ..utils.meters import AverageMeter
 from ..utils.metrics import actnet_acc
@@ -56,6 +63,19 @@ def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
         out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
         at += t.numel()
     return out
+
+
+def _gathered(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each batch's rows from every rank in rank order, the layout of a
+    batch-sharded output gathered over the processes
+    (data/dataflow.py::global_valid_masks); per-batch scalars (the mean
+    losses of equal local batches) become their mean over the ranks."""
+    if not tensors or world()[0] == 1:
+        return tensors
+    stacked = torch.stack(tensors)
+    if stacked.dim() == 1:
+        return list(gather_rows(stacked[:, None], dim=1).mean(1).unbind(0))
+    return list(gather_rows(stacked, dim=1).unbind(0))
 
 
 def train_epoch(loader, preprocess: Callable, step_fn: Callable, state,
@@ -254,10 +274,10 @@ def validate(loader, preprocess: Callable, eval_step: Callable, state,
         batch_time.update(time.time() - end)
         end = time.time()
 
-    all_logits = _fetch(dev_logits)
-    all_targets = _fetch(dev_targets)
-    all_selections = _fetch(dev_selections)
-    batch_losses = _fetch(dev_losses)
+    all_logits = _fetch(_gathered(dev_logits))
+    all_targets = _fetch(_gathered(dev_targets))
+    all_selections = _fetch(_gathered(dev_selections))
+    batch_losses = _fetch(_gathered(dev_losses))
 
     dropped = None
     if (adamml and eval_capacity is not None and eval_capacity < 1.0

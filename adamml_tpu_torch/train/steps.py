@@ -9,6 +9,14 @@ utils/utils.py:335). Gumbel and dropout noise come from per-step
 generators derived from (seed, step), the counterpart of ``_step_rngs``.
 ``make_adamml_multi_step`` runs K such steps a call; on the card they are
 one captured CUDA graph, replayed (``_GraphedSteps``).
+
+In a process group (parallel/mesh.py) a step is one rank's share of the
+data-parallel step: the live gradients are averaged over the ranks between
+backward and the clip (the clip sees the global gradient, as JAX's psum
+before ``clip_by_global_norm``), the metrics are averaged over the ranks,
+and with per-replica BN rank 0's BN statistics are broadcast after the
+update (DDP's broadcast_buffers), so every rank ends the step with the same
+parameters, statistics and metrics. Without a group none of this runs.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import torch
 from torch import nn
 
 from ..data.aug_params import OVERSAMPLE_CENTER
+from ..parallel.mesh import (GradAllReduce, average_metrics, backend_name,
+                             bn_statistics, broadcast_tensors)
 from .losses import compute_policy_loss, cross_entropy
 from .optim import clip_by_global_norm, set_lr
 from .train_state import EvalState, StageFlags, TrainState
@@ -70,6 +80,9 @@ def _adamml_step_body(model: nn.Module, *, flags: StageFlags,
     update_policy = flags.update_policy and has_policy
     live = ([model.main_net] if flags.update_main else []) + (
         [model.policy_net] if update_policy else [])
+    params = [p for m in live for p in m.parameters()]
+    reduce_grads = GradAllReduce(params)
+    sync_stats = _replica_stats(model)
 
     def body(state: TrainState, inputs: Sequence[torch.Tensor],
              target: torch.Tensor, temperature, cost_weights,
@@ -89,19 +102,21 @@ def _adamml_step_body(model: nn.Module, *, flags: StageFlags,
         # the policy loss enters the total only while the policy trains
         # (reference utils/utils.py:379-382)
         loss = cls_loss + policy_loss if flags.update_policy else cls_loss
-        params = [p for m in live for p in m.parameters()]
         if params:
             loss.backward()
+            reduce_grads()
             clip_by_global_norm(params, clip_gradient)
         if flags.update_main:
             state.main_opt.step()
         if update_policy:
             state.policy_opt.step()
+        sync_stats()
         logits = logits.detach()
-        return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
-                "policy_loss": policy_loss.detach(),
-                "selection": decisions.detach().mean(dim=(0, 1)),
-                **_topk_metrics(logits, target)}
+        return average_metrics({
+            "loss": loss.detach(), "cls_loss": cls_loss.detach(),
+            "policy_loss": policy_loss.detach(),
+            "selection": decisions.detach().mean(dim=(0, 1)),
+            **_topk_metrics(logits, target)})
 
     def set_lrs(state: TrainState, lr: float, p_lr: float) -> None:
         if flags.update_main:
@@ -110,6 +125,16 @@ def _adamml_step_body(model: nn.Module, *, flags: StageFlags,
             set_lr(state.policy_opt, p_lr)
 
     return body, set_lrs
+
+
+def _replica_stats(model: nn.Module) -> Callable[[], None]:
+    """After a step: rank 0's BN statistics to every rank when the moments
+    are per replica (a no-op under --sync-bn, whose statistics are global
+    on every rank already, and without a process group)."""
+    if any(getattr(m, "sync", False) for m in model.modules()):
+        return lambda: None
+    stats = bn_statistics(model)
+    return lambda: broadcast_tensors(stats)
 
 
 def make_adamml_train_step(model: nn.Module, *, flags: StageFlags,
@@ -175,8 +200,17 @@ def make_adamml_multi_step(model: nn.Module, *, flags: StageFlags,
     On the CPU it is K calls of the single step. On a CUDA model the K
     steps become one CUDA graph (``_GraphedSteps``): the first dispatch
     runs them as K single steps, the second captures the graph, and it and
-    later ones replay it."""
+    later ones replay it. In a process group the graph holds the step's
+    collectives, so on CUDA the group must be NCCL's: gloo's run on the
+    host, where no graph can hold them, and a CUDA model under gloo
+    raises."""
     device = next(model.parameters()).device
+    if device.type == "cuda" and backend_name() not in (None, "nccl"):
+        raise ValueError(
+            f"--steps_per_dispatch > 1 replays the steps as one CUDA graph, "
+            f"which cannot hold the {backend_name()} backend's collectives "
+            f"(they run on the host): use the nccl backend, or one step a "
+            f"dispatch")
     body, set_lrs = _adamml_step_body(
         model, flags=flags, penalty_type=penalty_type, gammas=gammas,
         clip_gradient=clip_gradient)
@@ -346,6 +380,8 @@ def make_unimodal_train_step(model: nn.Module, *,
     -> metrics (loss, top1, top5 on the model's device). It updates the
     model and ``state.main_opt`` in place; ``state.policy_opt`` is None."""
     device = next(model.parameters()).device
+    reduce_grads = GradAllReduce(list(model.parameters()))
+    sync_stats = _replica_stats(model)
 
     def step(state: TrainState, inputs: torch.Tensor, target: torch.Tensor,
              lr: float, seed: int):
@@ -354,12 +390,14 @@ def make_unimodal_train_step(model: nn.Module, *,
         logits = model(inputs, train=True, generator=drop)
         loss = cross_entropy(logits, target)
         loss.backward()
+        reduce_grads()
         clip_by_global_norm(model.parameters(), clip_gradient)
         set_lr(state.main_opt, lr)
         state.main_opt.step()
+        sync_stats()
         state.step += 1
-        return {"loss": loss.detach(),
-                **_topk_metrics(logits.detach(), target)}
+        return average_metrics({"loss": loss.detach(),
+                                **_topk_metrics(logits.detach(), target)})
 
     return step
 

@@ -23,8 +23,13 @@ class RankZeroLogger:
                 shutil.copyfile(path, path + ".{}".format(int(time.time())))
             self._fh = open(path, "a" if append else "w")
 
-    def log(self, msg: str) -> None:
+    def log(self, msg: str, every_rank: bool = False) -> None:
+        """Print ``msg`` and write it to the log file on rank 0. With
+        ``every_rank`` the other ranks print it too, prefixed with their
+        rank (the summaries every rank computes, to compare them)."""
         if self.rank != 0:
+            if every_rank:
+                print(f"[rank {self.rank}] {msg}", flush=True)
             return
         print(msg, flush=True)
         if self._fh is not None:

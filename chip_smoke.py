@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``chip_smoke.py --mp-worker ...`` is one rank of the multi_process phase,
+started by the script itself.)
+
 Phases, each printing one JSON line (or several):
 
   device      card name, count, and nvidia-smi's name and power limit;
@@ -100,6 +103,24 @@ Phases, each printing one JSON line (or several):
               temperature checked) and --pred_files on the file -e wrote
               (its top-1 equal to the evaluation's); every epoch's
               epilogue launches and every JPEG's decoder counted;
+  multi_process  data-parallel runs (adamml_tpu_torch/parallel/mesh.py):
+              (a) NCCL at world size 1 in this process, the flagship at
+              full width in both BN modes, each step through the
+              distributed code bit-equal to the step without a group, then
+              the K = 2 replay with its collectives captured against K
+              single steps; (b) two processes sharing the card over gloo
+              (this script with --mp-worker), the flagship at full width,
+              4 rows a rank of a global 8, 3 main and 3 policy steps in
+              each BN mode: the ranks bit-identical after every step, each
+              rank's main-step trace with 3 forward and 3 backward
+              epilogue kernels, ms per step against world size 1, the
+              gradient all-reduce's bytes and ms, peak memory per rank;
+              then the tiny float32 config against the single process at
+              bn_groups 2 (1 under --sync-bn); (c) both CLIs at world size
+              2 (the same Val lines on both ranks, every validation of
+              the dataset's rows, checkpoints from rank 0 alone,
+              model_best loaded on both ranks), then train_unimodal with
+              --multiprocessing-distributed;
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -1661,9 +1682,9 @@ class _CliProbe:
                 return out
             return run
 
-        def log_line(logger, msg):
+        def log_line(logger, msg, **kwargs):
             self.lines.append((time.perf_counter(), msg))
-            return log(logger, msg)
+            return log(logger, msg, **kwargs)
 
         cur.train_epoch = wrap("train", train_epoch)
         cur.validate = wrap("val", validate)
@@ -2219,10 +2240,528 @@ def real_data_phase(dev, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# multi_process: data-parallel runs (adamml_tpu_torch/parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+MP_TIMEOUT_S = 300
+MP_STEPS = 3  # steps of each phase at world size 2
+# the CLIs at world size 2: two processes sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one device); 13 videos are no multiple of 2 x 4, so
+# the padded eval rows are masked
+MP_UNIMODAL = ["--dataset", "synthetic", "--modality", "rgb",
+               "--backbone_net", "resnet", "-d", "50", "--groups", "8",
+               "-b", "8", "--epochs", "1", "--synthetic_length", "13",
+               "-j", "4"]
+MP_SPAWN = ["--dataset", "synthetic", "--modality", "rgb", "--backbone_net",
+            "resnet", "-d", "18", "--groups", "4", "-b", "8", "--epochs",
+            "1", "--synthetic_length", "13", "--input_size", "112", "-j", "4",
+            "--multiprocessing-distributed"]
+
+
+def _mp_digest(tensors) -> str:
+    """sha256 of ``tensors``' bytes (parameters, buffers, metrics)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def _mp_state(model, metrics) -> list:
+    return list(model.state_dict().values()) + [metrics[k]
+                                                for k in sorted(metrics)]
+
+
+def _mp_batches(cfg, batch, n, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(example_inputs(cfg, batch=batch, seed=seed + i, device=dev),
+             torch.randint(0, cfg.model.num_classes, (batch,), generator=gen,
+                           device=dev)) for i in range(n)]
+
+
+def _mp_rows(batch, rank, world):
+    """This rank's rows of a global batch."""
+    inputs, target = batch
+    n = target.shape[0] // world
+    return [x[rank * n:(rank + 1) * n] for x in inputs], \
+        target[rank * n:(rank + 1) * n]
+
+
+def _mp_compare(mine, theirs, rtol, p_lr) -> list:
+    """Per phase, a W-rank step against the single process from the same
+    start: exact decisions and top-k, losses' relative difference, BN
+    statistics and main-phase parameters beyond rtol (an absolute excess),
+    the frozen subnet bit-equal, and the policy update's largest difference
+    and share within 0.1 p_lr (tests/test_torch_multiprocess.py)."""
+    out = []
+    for (phase, start, got_m, got), (_, _, want_m, want) in zip(mine, theirs):
+        live = phase + "_net."
+        c = {"phase": phase,
+             "exact": all(torch.equal(got_m[k], want_m[k])
+                          for k in ("selection", "top1", "top5")),
+             "loss_rel": max(float((got_m[k] - want_m[k]).abs()
+                                   / want_m[k].abs().clamp_min(1e-12))
+                             for k in ("loss", "cls_loss", "policy_loss")),
+             "stats": 0.0, "params": 0.0, "policy_max": 0.0,
+             "frozen_equal": True, "moved": 0, "close": 0, "total": 0}
+        for k, v in want.items():
+            d = (got[k] - v).abs()
+            beyond = float((d - rtol * v.abs()).max())
+            if k.endswith(("running_mean", "running_var")):
+                c["stats"] = max(c["stats"], beyond)
+            elif not v.is_floating_point() or not k.startswith(live):
+                c["frozen_equal"] &= bool(torch.equal(got[k], v))
+            else:
+                c["moved"] += not torch.equal(start[0][k], got[k])
+                if phase == "main":
+                    c["params"] = max(c["params"], beyond)
+                else:
+                    c["policy_max"] = max(c["policy_max"], float(d.max()))
+                    c["close"] += int((d <= 0.1 * p_lr).sum())
+                    c["total"] += d.numel()
+        out.append(c)
+    return out
+
+
+def _mp_tiny_run(cfg, batch, rank, world, lr, p_lr, starts=None,
+                 bn_groups=None):
+    """One main and one policy step of ``cfg`` on this rank's rows of
+    ``batch``; each phase from ``starts`` when given: (phase, start state,
+    metrics, end state) per phase."""
+    model, _ = build_model(cfg, batch[1].device, bn_groups=bn_groups)
+    state = _train_state(model, cfg)
+    inputs, target = _mp_rows(batch, rank, world)
+    recs = []
+    for i, phase in enumerate(("main", "policy")):
+        if starts is not None:
+            sd, opt_sd, state.step = starts[i]
+            model.load_state_dict(sd)
+            state.main_opt.load_state_dict(opt_sd[0])
+            state.policy_opt.load_state_dict(opt_sd[1])
+        start = ({k: v.clone() for k, v in model.state_dict().items()},
+                 [__import__("copy").deepcopy(o.state_dict())
+                  for o in (state.main_opt, state.policy_opt)], state.step)
+        m = _make_step(model, phase)(state, inputs, target, lr, p_lr,
+                                     COST if phase == "policy" else [0., 0.],
+                                     seed=3)
+        recs.append((phase, start, {k: v.clone() for k, v in m.items()},
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    return recs
+
+
+def _mp_worker(argv) -> int:
+    """One rank of the multi_process phase (chip_smoke.py --mp-worker task
+    url rank world args): joins the gloo group on cuda:0, prints RESULT
+    lines for the parent."""
+    from adamml_tpu_torch.parallel import mesh
+
+    task, url, rank, world, args = argv
+    rank, world, args = int(rank), int(world), json.loads(args)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(args["device"])
+
+    def report(**fields):
+        print("RESULT " + json.dumps({"rank": rank, **fields}), flush=True)
+
+    if task == "cli":
+        import adamml_tpu_torch.ckpt.checkpoint as ckpt
+
+        real_write, real_validate = ckpt._write, cur.validate
+        real_load = cur.load_checkpoint
+
+        def write(*a):
+            print(f"CKPT_WRITE {rank} {os.path.basename(a[4])}", flush=True)
+            return real_write(*a)
+
+        def validated(*a, **kw):
+            v = real_validate(*a, **kw)
+            print(f"VALROWS {rank} {len(v['outputs'])}", flush=True)
+            return v
+
+        def loaded(path, *a):
+            print(f"LOADED {rank} {os.path.basename(path)}", flush=True)
+            return real_load(path, *a)
+
+        ckpt._write, cur.validate, cur.load_checkpoint = (write, validated,
+                                                          loaded)
+        main_fn = (train_adamml if args["cli"] == "train_adamml"
+                   else train_unimodal).main
+        return main_fn(args["argv"] + ["--dist-url", url, "--world-size",
+                                       str(world), "--rank", str(rank),
+                                       "--dist-backend", "gloo", "--gpu",
+                                       "0"])
+
+    cfg = flagship_cfg()
+    cfg.runtime.dist_url, cfg.runtime.world_size = url, world
+    cfg.runtime.rank = rank
+    mesh.init_distributed(cfg, dev, backend="gloo")
+    res = {}
+    # the flagship at full width, bf16, 4 rows a rank of a global 8
+    batches = _mp_batches(cfg, 8, MP_STEPS, 800, dev)
+    for sync in (False, True):
+        cfg.runtime.sync_bn = sync
+        model, _ = build_model(cfg, dev)
+        state = _train_state(model, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        digests, ms, trace = {}, {}, None
+        for phase in ("main", "policy"):
+            step = _make_step(model, phase)
+            digests[phase], ms[phase] = [], []
+            for i, b in enumerate(batches):
+                inputs, target = _mp_rows(b, rank, world)
+                if phase == "main" and i == len(batches) - 1:
+                    held = {}
+                    names = _device_kernels(lambda: held.update(m=step(
+                        state, inputs, target, LR, P_LR, [0., 0.], seed=i)))
+                    m = held["m"]
+                    trace = {"forward": sum(FWD_NAME in n and BWD_NAME not in n
+                                            for n in names),
+                             "backward": sum(BWD_NAME in n for n in names),
+                             "kernels": len(names)}
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = step(state, inputs, target, LR, P_LR,
+                             COST if phase == "policy" else [0., 0.], seed=i)
+                    torch.cuda.synchronize()
+                    ms[phase].append((time.perf_counter() - t0) * 1e3)
+                digests[phase].append(_mp_digest(_mp_state(model, m)))
+        live = sum(p.numel() for p in model.main_net.parameters())
+        flat = torch.zeros(live, device=dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.all_reduce(flat)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["sync_bn" if sync else "per_replica_bn"] = dict(
+            digests=digests, ms_per_step=ms, main_step_trace=trace,
+            synced=all(getattr(b, "sync", False) for b in model.modules()
+                       if hasattr(b, "running_mean")),
+            allreduce_bytes=live * 4, allreduce_ms=times[1:],
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+        del model, state, step, flat
+        torch.cuda.empty_cache()
+    # the tiny float32 config, cuDNN deterministic, real Gumbel noise
+    torch.backends.cudnn.deterministic = True
+    tiny = flagship_cfg(tiny=True)
+    tiny.runtime.world_size = world
+    batch = _mp_batches(tiny, 8, 1, 900, dev)[0]
+    mine = {}
+    for sync in (False, True):
+        tiny.runtime.sync_bn = sync
+        mine[sync] = _mp_tiny_run(tiny, batch, rank, world, LR, 1e-5)
+    mesh.shutdown()
+    if rank == 0:
+        tiny.runtime.world_size = 1
+        for sync in (False, True):
+            tiny.runtime.sync_bn = sync
+            theirs = _mp_tiny_run(
+                tiny, batch, 0, 1, LR, 1e-5, bn_groups=1 if sync else world,
+                starts=[(r[1][0], r[1][1], r[1][2]) for r in mine[sync]])
+            res[f"tiny_{'sync' if sync else 'per_replica'}_bn_vs_single"] = \
+                _mp_compare(mine[sync], theirs, 1e-4, 1e-5)
+    res["tiny_digests"] = [
+        _mp_digest(list(r[3].values()) + [r[2][k] for k in sorted(r[2])])
+        for sync in (False, True) for r in mine[sync]]
+    report(**res)
+    return 0
+
+
+def _mp_spawn(task, world, args) -> list:
+    """``world`` processes of this script as ranks of ``task``
+    (``_mp_worker``) on one rendezvous URL; each rank's output. A rank
+    that fails or outlives MP_TIMEOUT_S fails the phase; every child is
+    killed on the way out."""
+    import subprocess
+
+    from adamml_tpu_torch.parallel.mesh import free_local_url
+
+    here = os.path.abspath(__file__)
+    url = free_local_url()
+    # stdout apart from stderr: the C++ side's warnings on stderr can land
+    # in the middle of a line printed to a shared pipe
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--mp-worker", task, url, str(r), str(world),
+         json.dumps(args)], cwd=os.path.dirname(here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        got = [p.communicate(timeout=MP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, got)):
+        check(p.returncode == 0, f"multi_process {task} rank {r} exited "
+                                 f"{p.returncode}:\n{(out + err)[-3000:]}")
+    return [out for out, _ in got]
+
+
+def _mp_results(outs) -> list:
+    res = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(bool(lines), f"a rank printed no result:\n{out[-2000:]}")
+        res.append(json.loads(lines[-1][len("RESULT "):]))
+    return res
+
+
+def _mp_check_compare(label, cmp) -> None:
+    """The tolerances of tests/test_torch_multiprocess.py."""
+    for c in cmp:
+        ok = (c["exact"] and c["loss_rel"] <= 1e-5 and c["stats"] <= 2e-4
+              and c["frozen_equal"] and c["moved"] > 50)
+        if c["phase"] == "main":
+            ok &= c["params"] <= 0.1 * LR
+        else:
+            ok &= (c["policy_max"] <= 2.5e-5
+                   and c["close"] / c["total"] >= 0.99)
+        check(ok, f"{label} {c['phase']}: 2 ranks against the single "
+                  f"process: {c}")
+
+
+def _mp_nccl_world1(dev, card) -> dict:
+    """(a) NCCL at world size 1, in this process: the flagship at full
+    width, bf16, 8 clips, MP_STEPS main then MP_STEPS policy steps with
+    per-replica BN and with --sync-bn, through the distributed code (a
+    process group of one: the gradient all-reduce, the metric average, the
+    BN broadcast or the synchronized moments all run) against the same
+    steps without a group, bit for bit after every step; then the K = 2
+    replay with the collectives captured (main phase with per-replica BN:
+    gradients, metrics and BN statistics; policy phase under --sync-bn:
+    the moments' all-reduce in the forward and backward) against K single
+    steps (_replay_vs_eager)."""
+    from adamml_tpu_torch.parallel import mesh
+
+    cfg = flagship_cfg()
+    batches = _mp_batches(cfg, 8, MP_STEPS, 700, dev)
+
+    def run(sync):
+        cfg.runtime.sync_bn = sync
+        model, _ = build_model(cfg)
+        state = _train_state(model, cfg)
+        snaps, ms = [], []
+        for phase in ("main", "policy"):
+            step = _make_step(model, phase)
+            for i, (inputs, target) in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, inputs, target, LR, P_LR,
+                         COST if phase == "policy" else [0., 0.], seed=i)
+                torch.cuda.synchronize()
+                ms.append((phase, i, (time.perf_counter() - t0) * 1e3))
+                snaps.append([t.clone() for t in _mp_state(model, m)])
+        synced = [getattr(b, "sync", False) for b in model.modules()
+                  if hasattr(b, "running_mean")]
+        del model, state, step
+        return snaps, ms, synced
+
+    ref = {sync: run(sync) for sync in (False, True)}
+    cfg.runtime.dist_url = mesh.free_local_url()
+    got_mesh = mesh.init_distributed(cfg, dev)
+    out = {"backend": got_mesh.backend, "world": got_mesh.world,
+           "nccl_version": str(torch.cuda.nccl.version())}
+    check(got_mesh.backend == "nccl" and got_mesh.world == 1,
+          f"the group of one is {got_mesh}")
+    try:
+        zero_counts()
+        got = {sync: run(sync) for sync in (False, True)}
+        out["launches"] = all_counts()
+        for sync in (False, True):
+            mode = "sync_bn" if sync else "per_replica_bn"
+            unequal = [i for i, (a, b) in enumerate(zip(got[sync][0],
+                                                         ref[sync][0]))
+                       if not all(torch.equal(x, y) for x, y in zip(a, b))]
+            check(not unequal, f"nccl world 1 {mode}: steps {unequal} differ "
+                               f"from the steps without a group")
+            check(all(got[sync][2]) == sync and not any(ref[sync][2]),
+                  f"nccl world 1 {mode}: BN sync marks {set(got[sync][2])}")
+            out[mode] = {"steps_bit_equal": len(got[sync][0]),
+                         "ms_per_step_group": got[sync][1],
+                         "ms_per_step_no_group": ref[sync][1]}
+        del got, ref
+        torch.cuda.empty_cache()
+        cfg.runtime.sync_bn = False
+        out["replay_main_per_replica_bn"] = _replay_vs_eager(
+            cfg, "main", 8, dev, "multi_process_nccl_replay")
+        cfg.runtime.sync_bn = True
+        out["replay_policy_sync_bn"] = _replay_vs_eager(
+            cfg, "policy", 8, dev, "multi_process_nccl_replay")
+    finally:
+        mesh.shutdown()
+    emit("multi_process", check="nccl_world_1", card=card,
+         **{k: v for k, v in out.items() if not k.startswith("replay")})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _median_after_first(ms) -> float:
+    return float(np.median([t for phase, i, t in ms if i]))
+
+
+def _mp_gloo_world2(card, nccl) -> dict:
+    """(b) World size 2 on the one card: two processes share cuda:0 over
+    gloo, the flagship at full width with a global batch of 8, 4 rows a
+    rank, MP_STEPS main and MP_STEPS policy steps with per-replica BN and
+    with --sync-bn: both ranks bit-identical after every step, each rank's
+    device trace of a main step with 3 forward and 3 backward epilogue
+    kernels; the gradient all-reduce's bytes and ms, ms per step against
+    world size 1 (the single process of (a), 8 rows) and peak memory per
+    rank. Then the tiny float32 config (cuDNN deterministic, real Gumbel
+    noise): the 2-rank steps against the single process at bn_groups 2,
+    or 1 under --sync-bn, from the same start."""
+    t0 = time.perf_counter()
+    res = _mp_results(_mp_spawn("steps", 2, {"device": "cuda:0"}))
+    seconds = time.perf_counter() - t0
+    a, b = res
+    out = {}
+    for mode in ("per_replica_bn", "sync_bn"):
+        check(a[mode]["digests"] == b[mode]["digests"],
+              f"gloo world 2 {mode}: the ranks differ: "
+              f"{a[mode]['digests']} {b[mode]['digests']}")
+        check(a[mode]["synced"] == b[mode]["synced"] == (mode == "sync_bn"),
+              f"gloo world 2 {mode}: BN sync marks")
+        for r in res:
+            tr = r[mode]["main_step_trace"]
+            check(tr["forward"] == 3 and tr["backward"] == 3,
+                  f"gloo world 2 {mode} rank {r['rank']}: main step trace "
+                  f"{tr}, expected 3 forward and 3 backward epilogue kernels")
+        w2 = [t for r in res for ph in ("main", "policy")
+              for t in r[mode]["ms_per_step"][ph][1:]]
+        out[mode] = dict(
+            steps_bit_identical=2 * MP_STEPS,
+            main_step_trace=[r[mode]["main_step_trace"] for r in res],
+            median_ms_per_step_world2=float(np.median(w2)),
+            median_ms_per_step_world1=_median_after_first(
+                nccl[mode]["ms_per_step_no_group"]),
+            ms_per_step_world2=[r[mode]["ms_per_step"] for r in res],
+            allreduce_bytes=a[mode]["allreduce_bytes"],
+            allreduce_ms=[r[mode]["allreduce_ms"] for r in res],
+            max_memory_allocated_bytes=[r[mode]["max_memory_allocated_bytes"]
+                                        for r in res])
+    check(a["tiny_digests"] == b["tiny_digests"],
+          "gloo world 2 tiny: the ranks differ")
+    for key in ("tiny_per_replica_bn_vs_single", "tiny_sync_bn_vs_single"):
+        _mp_check_compare(key, a[key])
+        out[key] = a[key]
+    emit("multi_process", check="gloo_world_2", card=card, seconds=seconds,
+         **out, timing="host clock around each step ending in "
+         "torch.cuda.synchronize(); the first step of each phase left out "
+         "of the medians; world 1 is (a)'s single process on 8 rows, world "
+         "2 two processes of 4 rows sharing the card; all-reduce: "
+         "dist.all_reduce of a float32 buffer of the main net's size, 3 "
+         "after 1 warm-up")
+    return out
+
+
+def _mp_lines(out, prefix) -> list:
+    return [ln.split(" ", 1)[1] for ln in out.splitlines()
+            if ln.startswith(prefix + " ")]
+
+
+def _mp_val_lines(out, rank) -> list:
+    """The Val lines a rank printed, without the per-rank speed."""
+    import re
+
+    tag = "Val: " if rank == 0 else f"[rank {rank}] Val: "
+    return [re.sub(r"Speed: [0-9.]+ ms/batch\t", "", ln[len(tag) - 5:])
+            for ln in out.splitlines() if ln.startswith(tag)]
+
+
+def _mp_cli(card) -> dict:
+    """(c) Both CLIs at world size 2 on the card, two processes with
+    --dist-url --world-size 2 --rank r --dist-backend gloo --gpu 0:
+    train_unimodal rgb ResNet-50 on 13 synthetic videos, and the
+    flagship curriculum (FLAGSHIP_FLAGS, 16 videos, 1 epoch a stage). Both
+    ranks print the same Val lines; every gathered validation has the
+    dataset's rows; only rank 0 writes checkpoints; finetune loads
+    model_best on both ranks when one was written."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cli, argv, rows in (
+                ("train_unimodal", MP_UNIMODAL, 13),
+                ("train_adamml", CLI_ADAMML, 16)):
+            logdir = os.path.join(tmp, cli)
+            t0 = time.perf_counter()
+            outs = _mp_spawn("cli", 2, {"cli": cli, "device": "cuda:0",
+                                        "argv": argv + ["--logdir", logdir]})
+            seconds = time.perf_counter() - t0
+            val = [_mp_val_lines(o, r) for r, o in enumerate(outs)]
+            check(bool(val[0]) and val[0] == val[1],
+                  f"{cli} world 2: Val lines differ: {val}")
+            got_rows = [[int(x.split()[1]) for x in _mp_lines(o, "VALROWS")]
+                        for o in outs]
+            check(got_rows[0] == got_rows[1]
+                  and set(got_rows[0]) == {rows},
+                  f"{cli} world 2: validation rows {got_rows}, expected "
+                  f"{rows}")
+            writes = [_mp_lines(o, "CKPT_WRITE") for o in outs]
+            check(bool(writes[0]) and not writes[1],
+                  f"{cli} world 2: checkpoint writes {writes}")
+            folder = os.path.join(logdir, os.listdir(logdir)[0])
+            best = os.path.exists(os.path.join(folder, "model_best"))
+            loads = [_mp_lines(o, "LOADED") for o in outs]
+            if cli == "train_adamml":
+                check(all(any(ln.endswith("model_best") for ln in ls) == best
+                          for ls in loads),
+                      f"train_adamml world 2: model_best written {best}, "
+                      f"loads {loads}")
+            out[cli] = dict(seconds=seconds, val_lines=val[0],
+                            val_rows=got_rows[0], checkpoint_writes=writes,
+                            model_best=best, loads=loads)
+            emit("multi_process", check=f"cli_world_2_{cli}", card=card,
+                 **out[cli])
+    return out
+
+
+def _mp_cli_spawn(card) -> dict:
+    """train_unimodal with --multiprocessing-distributed, as a user runs
+    it: one process per visible card (NCCL, a group of one here)."""
+    import subprocess
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "adamml_tpu_torch.cli.train_unimodal",
+             *MP_SPAWN, "--logdir", os.path.join(tmp, "spawn")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=MP_TIMEOUT_S)
+        val = _mp_val_lines(p.stdout, 0)
+        check(p.returncode == 0 and len(val) == 1,
+              f"--multiprocessing-distributed: exit {p.returncode}, Val "
+              f"lines {val}:\n{(p.stdout + p.stderr)[-3000:]}")
+        out = dict(seconds=time.perf_counter() - t0,
+                   processes=torch.cuda.device_count(), val_line=val[0])
+    emit("multi_process", check="cli_multiprocessing_distributed",
+         card=card, argv=MP_SPAWN, **out)
+    return out
+
+
+def multi_process_phase(dev, card: str) -> dict:
+    """Data-parallel runs (parallel/mesh.py): (a) NCCL at world size 1,
+    (b) world size 2 over gloo on the one card, (c) both CLIs at world size
+    2 and --multiprocessing-distributed. The kernels are built before any
+    rank starts (two ranks building into _build/ at once would race)."""
+    out = {"nccl": _mp_nccl_world1(dev, card)}
+    out["gloo"] = _mp_gloo_world2(card, out["nccl"])
+    out["cli"] = _mp_cli(card)
+    out["spawn"] = _mp_cli_spawn(card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mp-worker"]:
+        return _mp_worker(sys.argv[2:])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2266,6 +2805,7 @@ def main() -> int:
     preprocess_phase(dev)
     cres = cli_phase(dev, smi)
     rres = real_data_phase(dev, smi)
+    pres = multi_process_phase(dev, smi)
 
     def bound_by(res):
         return "bytes" if res["bytes_s"] >= res["ops_s"] else "operations"
@@ -2306,6 +2846,10 @@ def main() -> int:
             "cli_train_adamml_multi": cres["train_adamml_multi"][tp.KERNEL],
             "cli_train_adamml_multi_traces": [
                 t["forward"] for t in cres["train_adamml_multi_traces"]],
+            "multi_process_nccl_world1": pres["nccl"]["launches"][tp.KERNEL],
+            "multi_process_gloo_world2_main_step_trace_per_rank": [
+                t["forward"] for t in
+                pres["gloo"]["per_replica_bn"]["main_step_trace"]],
             **{f"eval_capacity_{k}": v[tp.KERNEL]
                for k, v in eres["launches"].items()}},
         "packed_rows": eres["kernel"],
@@ -2343,7 +2887,12 @@ def main() -> int:
             "cli_train_adamml_multi":
                 cres["train_adamml_multi"][tp.KERNEL_BWD],
             "cli_train_adamml_multi_traces": [
-                t["backward"] for t in cres["train_adamml_multi_traces"]]},
+                t["backward"] for t in cres["train_adamml_multi_traces"]],
+            "multi_process_nccl_world1":
+                pres["nccl"]["launches"][tp.KERNEL_BWD],
+            "multi_process_gloo_world2_main_step_trace_per_rank": [
+                t["backward"] for t in
+                pres["gloo"]["per_replica_bn"]["main_step_trace"]]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "

@@ -10,6 +10,8 @@ float LR grid and mAP, which must agree to the last bit as well
 """
 
 import dataclasses
+import platform
+import time
 
 import numpy as np
 import pytest
@@ -93,21 +95,27 @@ def test_validate_args_rejects_the_same_argv(argv):
             cfgmod.validate_args(parser, parser.parse_args(argv))
 
 
-# (argv, the flag the ValueError must name): README.md's flag table
+# (argv, the flag the ValueError must name, and what else it says):
+# README.md's flag table
 REJECTED = [
-    (["--mesh_data", "2"], "--mesh_data"),
-    (["--mesh_model", "2"], "--mesh_model"),
-    (["--multiprocessing-distributed"], "--multiprocessing-distributed"),
-    (["--gpu", "0,1"], "--gpu"),
+    (["--mesh_data", "2"], "--mesh_data", "world size"),
+    (["--mesh_model", "2"], "--mesh_model", "A.20"),
+    (["--world-size", "2", "--mesh_data", "4"], "--mesh_data", "world size"),
+    (["--gpu", "0,1"], "--gpu", "--multiprocessing-distributed"),
 ]
 
 
-@pytest.mark.parametrize("argv,flag", REJECTED, ids=[f for _, f in REJECTED])
-def test_rejected_flags_name_themselves(argv, flag):
+@pytest.mark.parametrize("argv,flag,why", REJECTED,
+                         ids=[f"{f}-{a[-1]}" for a, f, _ in REJECTED])
+def test_rejected_flags_name_themselves(argv, flag, why):
+    """--mesh_data other than -1 or the world size, --mesh_model above 1
+    (tensor parallelism, ROADMAP A.20) and two devices without
+    --multiprocessing-distributed."""
     parser = tconfig.arg_parser()
     args = parser.parse_args(["--dataset", "synthetic"] + argv)
-    with pytest.raises(ValueError, match=flag):
+    with pytest.raises(ValueError, match=flag) as err:
         tconfig.validate_args(parser, args)
+    assert why in str(err.value)
 
 
 # flags whose modules are ported since: accepted, and reaching the config
@@ -123,6 +131,16 @@ PORTED = [
     (["--capacity_groups", "2"], lambda c: c.model.capacity_groups == 2),
     (["--profile_dir", "/x"], lambda c: c.runtime.profile_dir == "/x"),
     (["--pred_files", "a.npy"], lambda c: c.runtime.pred_files == ["a.npy"]),
+    (["--multiprocessing-distributed"],
+     lambda c: c.runtime.multiprocessing_distributed),
+    (["--gpu", "0,1", "--multiprocessing-distributed", "--mesh_data", "2"],
+     lambda c: c.runtime.mesh_data == 2),
+    (["--dist-url", "tcp://127.0.0.1:1", "--world-size", "2", "--rank", "1",
+      "--mesh_data", "2", "--sync-bn"],
+     lambda c: (c.runtime.dist_url, c.runtime.world_size, c.runtime.rank,
+                c.runtime.sync_bn) == ("tcp://127.0.0.1:1", 2, 1, True)),
+    (["--hostfile", "/h", "--mesh_data", "3"],
+     lambda c: c.runtime.hostfile == "/h" and c.runtime.mesh_data == 3),
 ]
 
 
@@ -142,8 +160,10 @@ def _accepted(argv):
 def test_accepted_flags_and_their_meaning(capsys):
     """--compute_dtype, --use_pallas_dw, --no_fused_tpool and --sync-bn
     reach the model config; --mesh_data -1 and 1 and --mesh_model 1 are one
-    card; --no_fused_update is foreach=False; --gpu/--gpu_id pick the card;
-    --disable_cudnn_benchmark and --dist-backend warn."""
+    card; --no_fused_update is foreach=False; --gpu/--gpu_id pick the card
+    (each rank its own under --multiprocessing-distributed);
+    --disable_cudnn_benchmark warns and --dist-backend does not (it picks
+    the process group's backend)."""
     _, cfg = _accepted(["--compute_dtype", "float32", "--use_pallas_dw",
                         "--no_fused_tpool", "--sync-bn", "--mesh_data", "1",
                         "--mesh_model", "1", "--steps_per_dispatch", "1"])
@@ -160,8 +180,14 @@ def test_accepted_flags_and_their_meaning(capsys):
     args, _ = _accepted(["--gpu_id", "1"])
     assert tconfig.cuda_device(args) == "cuda:1"
     assert tconfig.cuda_device(_accepted([])[0]) == "cuda"
+    args, _ = _accepted(["--gpu", "2,5", "--multiprocessing-distributed"])
+    assert [tconfig.cuda_device(args, i) for i in (0, 1)] == ["cuda:2",
+                                                              "cuda:5"]
+    assert tconfig.run_devices(args, "cpu") == ["cpu", "cpu"]
     _accepted(["--disable_cudnn_benchmark", "--dist-backend", "nccl"])
-    assert capsys.readouterr().out.count("has no effect in the port") == 2
+    out = capsys.readouterr().out
+    assert out.count("has no effect in the port") == 1
+    assert "--dist-backend" not in out
 
 
 @pytest.mark.parametrize("main", [tcli.main, tuni.main],
@@ -185,16 +211,26 @@ def test_train_unimodal_refuses_pretrained_flags(flag, tmp_path):
                    str(tmp_path), "--logdir", str(tmp_path)], device="cpu")
 
 
-def test_distributed_runs_are_rejected():
-    cfg = flagship_cfg(tiny=True)
-    cfg.runtime.hostfile = "hosts.txt"
-    with pytest.raises(ValueError, match="--hostfile"):
-        tcli.init_distributed(cfg)
+def test_distributed_runs_are_rejected(tmp_path):
+    """Without a coordinator a multi-process run reaches init_distributed
+    and fails there, for the coordinator alone: a world size of 2 with
+    neither --dist-url nor --hostfile at once; a hostfile naming this host
+    as rank 1 under a master (localhost:10598) that never answers, within
+    the timeout. One process joins no group."""
     cfg = flagship_cfg(tiny=True)
     cfg.runtime.world_size = 2
-    with pytest.raises(ValueError, match="--world-size"):
+    with pytest.raises(ValueError, match="--world-size 2 .*coordinator"):
         tcli.init_distributed(cfg)
-    tcli.init_distributed(flagship_cfg(tiny=True))
+    hosts = tmp_path / "hosts.txt"
+    hosts.write_text(f"localhost\n{platform.node()}\n")
+    cfg = flagship_cfg(tiny=True)
+    cfg.runtime.hostfile = str(hosts)
+    t0 = time.monotonic()
+    with pytest.raises((RuntimeError, TimeoutError)):
+        tcli.init_distributed(cfg, timeout_s=2.0)
+    assert time.monotonic() - t0 < 30
+    assert not torch.distributed.is_initialized()
+    assert tcli.init_distributed(flagship_cfg(tiny=True)).backend is None
 
 
 @pytest.mark.parametrize("lines,node", [

@@ -7,8 +7,12 @@ train_adamml run on the card against the CPU, and the multi-step dispatch's
 replayed CUDA graph against the same steps run as single steps.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
-card is present. The file imports no JAX, so it also runs on a machine that
-has only PyTorch:
+card is present. The data-parallel checks (parallel/mesh.py): an NCCL
+process group of one, in this process, is the single process bit for bit,
+and holds its collectives in a replayed CUDA graph; gloo refuses a graph;
+two processes sharing the card over gloo match the single process
+(tests/test_torch_multiprocess.py's comparison). The file imports no JAX,
+so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
@@ -675,7 +679,8 @@ def _train_restore(model, state, snap):
     state.step = snap[2]
 
 
-def _replay_vs_single_steps(phase: str, use_pallas_dw: bool):
+def _replay_vs_single_steps(phase: str, use_pallas_dw: bool,
+                            sync_bn: bool = True):
     """The tiny float32 config, K = 2: the first dispatch runs 2 single
     steps, the second captures the CUDA graph and replays it; from the
     snapshot between them 2 calls of make_adamml_train_step (the plain
@@ -685,6 +690,7 @@ def _replay_vs_single_steps(phase: str, use_pallas_dw: bool):
     boundaries)."""
     cfg = flagship_cfg(tiny=True)
     cfg.model.use_pallas_dw = use_pallas_dw
+    cfg.runtime.sync_bn = sync_bn
     model, _ = build_model(cfg)
     state = TrainState(
         build_optimizer("main", cfg.optim, model.main_net.parameters()),
@@ -749,3 +755,106 @@ def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch):
     _need_card()
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     _replay_vs_single_steps(phase, use_pallas_dw=True)
+
+
+@pytest.fixture
+def group_of_one(request):
+    """A process group of one on cuda:0 in this process (``request.param``:
+    the backend), left at the end."""
+    _need_card()
+    from adamml_tpu_torch.parallel import mesh
+
+    cfg = flagship_cfg(tiny=True)
+    cfg.runtime.dist_url = mesh.free_local_url()
+    got = mesh.init_distributed(cfg, "cuda:0", backend=request.param,
+                                timeout_s=60)
+    try:
+        yield got
+    finally:
+        mesh.shutdown()
+
+
+def _tiny_step_state(phase, sync_bn):
+    """One tiny float32 step from the seeded init (real noise): the
+    metrics and the state dict."""
+    cfg = flagship_cfg(tiny=True)
+    cfg.runtime.sync_bn = sync_bn
+    model, _ = build_model(cfg)
+    state = TrainState(
+        build_optimizer("main", cfg.optim, model.main_net.parameters()),
+        build_optimizer("policy", cfg.optim, model.policy_net.parameters()))
+    step = make_adamml_train_step(
+        model, flags=(StageFlags.main_phase() if phase == "main"
+                      else StageFlags.policy_phase()),
+        penalty_type="blockdrop", gammas=10.0, clip_gradient=None)
+    x = example_inputs(cfg, batch=4, seed=7)
+    m = step(state, x, torch.arange(4, device="cuda") % 5, 1e-3, 1e-2,
+             [1.0, 0.05], seed=2)
+    return m, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("group_of_one", ["nccl"], indirect=True)
+@pytest.mark.parametrize("sync_bn", [False, True],
+                         ids=["per_replica_bn", "sync_bn"])
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_nccl_group_of_one_is_the_single_process(phase, sync_bn,
+                                                 group_of_one, monkeypatch):
+    """World size 1 under NCCL: the gradient all-reduce, the metric
+    average and the BN broadcast (or the synchronized moments) run, and the
+    step equals the one without a group, bit for bit (cuDNN
+    deterministic)."""
+    from adamml_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert (group_of_one.world, group_of_one.backend) == (1, "nccl")
+    got_m, got = _tiny_step_state(phase, sync_bn)
+    mesh.shutdown()
+    want_m, want = _tiny_step_state(phase, sync_bn)
+    for k in want_m:
+        assert torch.equal(got_m[k], want_m[k]), k
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("group_of_one", ["nccl"], indirect=True)
+@pytest.mark.parametrize("phase,sync_bn", [("main", False),
+                                           ("policy", True)])
+def test_nccl_replay_holds_the_collectives(phase, sync_bn, group_of_one,
+                                           monkeypatch):
+    """The K = 2 replay in an NCCL group of one, its collectives captured
+    in the graph (the main phase with per-replica BN: gradients, metrics,
+    BN statistics; the policy phase under --sync-bn: the moments in the
+    forward and backward), equals K single steps bit for bit
+    (``_replay_vs_single_steps``)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _replay_vs_single_steps(phase, use_pallas_dw=False, sync_bn=sync_bn)
+
+
+@pytest.mark.parametrize("group_of_one", ["gloo"], indirect=True)
+def test_gloo_refuses_a_captured_graph(group_of_one):
+    """Gloo's collectives run on the host, where no CUDA graph can hold
+    them: K steps a dispatch on a CUDA model raise instead of running K
+    single steps."""
+    model, _ = build_model(flagship_cfg(tiny=True))
+    with pytest.raises(ValueError, match="gloo"):
+        make_adamml_multi_step(model, flags=StageFlags.main_phase(),
+                               penalty_type="blockdrop", gammas=10.0,
+                               clip_gradient=None)
+
+
+@pytest.mark.parametrize("sync_bn", [False, True],
+                         ids=["per_replica_bn", "sync_bn"])
+def test_two_ranks_share_the_card(sync_bn, tmp_path):
+    """Two processes on cuda:0 over gloo, the tiny flagship's main and
+    policy steps on 4 rows each of a global 8: both ranks bit-identical,
+    and within tests/test_torch_multiprocess.py's tolerances of the single
+    process at bn_groups 2 (1 under --sync-bn), cuDNN deterministic."""
+    _need_card()
+    from test_torch_multiprocess import LR, P_LR_K, _launch, check_compare
+
+    results, _ = _launch(tmp_path, "steps", device="cuda:0", sync_bn=sync_bn,
+                         batch=8, lr=LR, p_lr=P_LR_K, rtol=1e-4)
+    assert results[0]["digests"] == results[1]["digests"]
+    assert results[0]["synced"] is results[1]["synced"] is sync_bn
+    for i, c in enumerate(results[0]["compare"]):
+        check_compare(c, i)

@@ -74,6 +74,11 @@ def test_grouped_batchnorm_train(r, s, si, n, return_affine):
     and the folded running statistics against flax, float32. Tolerance 1e-5:
     the port applies x*a + b where flax applies (x - mean)*rsqrt*scale +
     bias, a reassociation of the same float32 math."""
+    check_grouped_batchnorm(r, s, si, n, return_affine)
+
+
+def check_grouped_batchnorm(r, s, si, n, return_affine):
+    """test_grouped_batchnorm_train's comparison for one case."""
     rs = np.random.RandomState(r * 100 + s * 10 + si + n)
     x = (rs.randn(n, 3, 3, 16) * 2.0 + 0.5).astype(np.float32)
     jmod = JBN(use_running_average=False, groups=r, seq_groups=s,
@@ -269,11 +274,15 @@ def _jax_grad_fn(jmodel, live_key, with_policy_loss):
     return jax.jit(fn)
 
 
-def run_alternating(phases, use_pallas_dw=False, policy_input_size=None):
+def run_alternating(phases, use_pallas_dw=False, policy_input_size=None,
+                    bn_groups=None, clips=STEP_CLIPS):
     """Both frameworks take the same steps (``phases``, each "main" or
     "policy") from the same weights, at the tiny config's policy-stream
-    size unless ``policy_input_size`` is given; after each, the metrics, the
-    port's
+    size unless ``policy_input_size`` is given, with --sync-bn (the
+    flagship's) unless ``bn_groups`` R is given: then per-replica BN, the
+    JAX package on a data mesh of R (``mesh_data`` R) against the port's
+    one process at ``bn_groups`` R, on ``clips`` clips; after each, the
+    metrics, the port's
     tensors and gradients, the JAX state and its gradient at the step's
     start (both in the port's layout), the number of plain-backward calls of
     the fused epilogue, and the depthwise op's calls by launch key (forward,
@@ -288,12 +297,16 @@ def run_alternating(phases, use_pallas_dw=False, policy_input_size=None):
     if policy_input_size is not None:
         cfg.model.policy_input_size = policy_input_size
         jcfg.model.policy_input_size = policy_input_size
+    if bn_groups is not None:
+        cfg.runtime.sync_bn = jcfg.runtime.sync_bn = False
+        jcfg.runtime.mesh_data = bn_groups
     rs = np.random.RandomState(0)
-    x = _inputs(cfg, rs, STEP_CLIPS)
-    target = rs.randint(0, cfg.model.num_classes, STEP_CLIPS)
+    x = _inputs(cfg, rs, clips)
+    target = rs.randint(0, cfg.model.num_classes, clips)
     jmodel, _ = jbuilder.build_model(jcfg)
     v = flax_variables(jmodel, rs, [jnp.asarray(a) for a in x], train=False)
-    tmodel, _ = tbuilder.build_model(cfg, device="cpu")
+    assert jbuilder._bn_groups(jcfg) == (bn_groups or 1)
+    tmodel, _ = tbuilder.build_model(cfg, device="cpu", bn_groups=bn_groups)
     load_flax_variables(tmodel, v["params"], v["batch_stats"])
 
     def port_layout(params, stats):
