@@ -12,7 +12,11 @@ utils/utils.py:89-96):
   <dir>/model_best            -- copy on val-top-1 improvement
 
 each holding ``state.pt`` and ``meta.json``. Rank 0 writes them;
-``load_checkpoint`` runs on every rank, onto its own device. The meta carries
+``load_checkpoint`` runs on every rank, onto its own device. A checkpoint
+is unsharded: at --mesh_model M > 1 every rank gathers each sharded weight
+and its optimizer state over its model group before rank 0 writes, and on
+load every rank reads the full tensors and keeps its rows, so one written
+at any M resumes at any other. The meta carries
 ``optim_layout: "torch"``; ``check_layout`` refuses any other tag, so an
 orbax checkpoint of the JAX package (tag "fused" or "per_tensor") is named
 as such instead of failing inside ``torch.load``.
@@ -28,7 +32,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..parallel.mesh import barrier
+from ..parallel.mesh import (barrier, full_optimizer_state, full_state_dict,
+                             shard_optimizer_state, shard_state_dict)
 from ..train.train_state import TrainState
 
 _META = "meta.json"
@@ -46,22 +51,22 @@ def save_checkpoint(model: nn.Module, state: TrainState, meta: dict,
     and dist.barrier, reference train_adamml.py:355,471,583), so no rank
     reads a checkpoint before it exists."""
     path = os.path.abspath(os.path.join(filepath, "checkpoint"))
+    payload = {"model": full_state_dict(model),
+               "main_opt": full_optimizer_state(state.main_opt),
+               "temperature": float(state.temperature),
+               "step": int(state.step)}
+    if state.policy_opt is not None:
+        payload["policy_opt"] = full_optimizer_state(state.policy_opt)
     if rank == 0:
-        _write(model, state, meta, filepath, path, is_best, epoch, suffix)
+        _write(payload, meta, filepath, path, is_best, epoch, suffix)
     barrier()
     return path
 
 
-def _write(model, state, meta, filepath, path, is_best, epoch, suffix):
+def _write(payload, meta, filepath, path, is_best, epoch, suffix):
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    payload = {"model": model.state_dict(),
-               "main_opt": state.main_opt.state_dict(),
-               "temperature": float(state.temperature),
-               "step": int(state.step)}
-    if state.policy_opt is not None:
-        payload["policy_opt"] = state.policy_opt.state_dict()
     torch.save(payload, os.path.join(path, _STATE))
     with open(os.path.join(path, _META), "w") as f:
         json.dump({**meta, "optim_layout": LAYOUT}, f)
@@ -106,12 +111,15 @@ def read_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:
 
 def load_checkpoint(path: str, model: nn.Module, state: TrainState) -> dict:
     """Restore the model, both optimizers, temperature and step in place
-    (tensors land on the model's device) and return the meta."""
+    (tensors land on the model's device; sharded weights and their
+    optimizer state keep this rank's rows) and return the meta."""
     meta, payload = read_checkpoint(path, next(model.parameters()).device)
-    model.load_state_dict(payload["model"])
-    state.main_opt.load_state_dict(payload["main_opt"])
+    model.load_state_dict(shard_state_dict(model, payload["model"]))
+    state.main_opt.load_state_dict(
+        shard_optimizer_state(state.main_opt, payload["main_opt"]))
     if state.policy_opt is not None and "policy_opt" in payload:
-        state.policy_opt.load_state_dict(payload["policy_opt"])
+        state.policy_opt.load_state_dict(
+            shard_optimizer_state(state.policy_opt, payload["policy_opt"]))
     state.temperature = payload["temperature"]
     state.step = payload["step"]
     return meta

@@ -12,7 +12,9 @@ Two of the reference's three loading modes (the third, resume, is
       checkpoint directory of this package or a reference torch
       .pth/.pth.tar/.pt file (converted by ``ckpt/torch_convert.py``)
 
-An orbax checkpoint of the JAX package is refused by name
+Both read full tensors; a weight sharded over --mesh_model keeps this
+rank's rows of its value. An orbax checkpoint of the JAX package is refused
+by name
 (``checkpoint.read_checkpoint``): reading one needs JAX and orbax, which
 this package does not import.
 """
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from ..configs.config import input_channels_for
+from ..parallel.mesh import param_shard
 from .checkpoint import read_checkpoint
 from .flax_convert import flax_leaves
 from .torch_convert import (convert_mobilenet_v2_state_dict,
@@ -49,10 +52,11 @@ def _torch_state_dict(path: str) -> Dict[str, np.ndarray]:
 def _graft(model: nn.Module, src: Iterable[Tuple[str, torch.Tensor]],
            strict: bool, prefix: str = "") -> int:
     """Copy each (name, value) of ``src`` into ``model``'s parameter or
-    buffer ``prefix + name`` when the shapes agree; a missing name or a
-    shape mismatch raises under ``strict`` (before anything is written)
-    and is skipped otherwise. Returns the number of parameters grafted
-    (buffers are not counted)."""
+    buffer ``prefix + name`` when the shapes agree (a sharded weight takes
+    its rows of the full value); a missing name or a shape mismatch raises
+    under ``strict`` (before anything is written) and is skipped
+    otherwise. Returns the number of parameters grafted (buffers are not
+    counted)."""
     params = dict(model.named_parameters())
     targets = {**params, **dict(model.named_buffers())}
     plan = []
@@ -63,6 +67,9 @@ def _graft(model: nn.Module, src: Iterable[Tuple[str, torch.Tensor]],
             if strict:
                 raise KeyError(f"missing key in target: {where}")
             continue
+        shard = param_shard(tgt)
+        if shard is not None and value.shape[0] == shard.size * len(tgt):
+            value = shard.rows(torch.as_tensor(value))
         if tuple(tgt.shape) != tuple(value.shape):
             if strict:
                 raise ValueError(f"shape mismatch at {where}: "

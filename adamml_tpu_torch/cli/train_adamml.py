@@ -8,7 +8,9 @@ device) unless ``main`` is given ``device="cpu"``. A data-parallel run has
 one process per rank (parallel/mesh.py): started by hand with
 ``--dist-url tcp://HOST:PORT --world-size W --rank R`` (or ``--hostfile``),
 or spawned one per device with ``--multiprocessing-distributed``; NCCL on
-CUDA, gloo on the CPU, unless ``--dist-backend`` names one.
+CUDA, gloo on the CPU, unless ``--dist-backend`` names one. The W ranks
+form D = W / M data shards of ``--mesh_model`` M tensor-parallel ranks
+each.
 
 Usage (synthetic data; mirrors reference README.md:86-95):
   python -m adamml_tpu_torch.cli.train_adamml --dataset synthetic \

@@ -409,9 +409,11 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-url", dest="dist_url", default="", type=str)
     p.add_argument("--hostfile", default="", type=str)
     p.add_argument("--mesh_data", default=-1, type=int,
-                   help="-1 or the world size: one data shard a rank")
+                   help="-1 or the world size over --mesh_model: the data "
+                        "shards")
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="only 1: tensor parallelism is not ported")
+                   help="ranks a tensor-parallel group (dividing the world "
+                        "size): the wide Dense weights are split over them")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--profile_dir", default="", type=str,
                    help="write a torch.profiler trace of steps 2-4 of each "
@@ -419,15 +421,6 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     return p
-
-
-# Flags the port rejects, each with the reason (README.md's port section):
-# (flag, whether the parsed value asks for it, reason)
-_REJECTED = (
-    ("--mesh_model", lambda a: a.mesh_model > 1,
-     "tensor parallelism, the column-sharded wide kernels, is not ported "
-     "yet (ROADMAP A.20)"),
-)
 
 
 def gpu_ids(args: argparse.Namespace) -> List[str]:
@@ -440,8 +433,9 @@ def validate_args(parser: argparse.ArgumentParser,
                   args: argparse.Namespace) -> None:
     """The JAX package's checks (the same argv fails through
     ``parser.error``), then a ``ValueError`` naming each flag that the port
-    cannot run: --mesh_model above 1, --mesh_data other than -1 or the
-    world size, and two devices outside --multiprocessing-distributed."""
+    cannot run: --mesh_model that does not divide the world size,
+    --mesh_data other than -1 or the world size over it, and two devices
+    outside --multiprocessing-distributed."""
     if args.threed_data:
         parser.error("--threed_data requires a 3D backbone; none is in the "
                      "model table (the reference's default 's3d' is absent "
@@ -462,17 +456,19 @@ def validate_args(parser: argparse.ArgumentParser,
         parser.error("--num_segments > 1 training requires --dense_sampling "
                      "(uniform train sampling yields one clip, matching "
                      "reference utils/video_dataset.py:154-168)")
-    rejected = [(flag, why) for flag, asks, why in _REJECTED if asks(args)]
-    if rejected:
-        raise ValueError("; ".join(f"{flag} is not supported by the CUDA "
-                                   f"port: {why}" for flag, why in rejected))
+    if args.mesh_model < 1:
+        raise ValueError(f"--mesh_model {args.mesh_model} must be at least 1")
     # the world size is known here unless a hostfile or the spawn sets it
     # (parallel/mesh.py::init_distributed checks again then)
-    if (not args.hostfile and not args.multiprocessing_distributed
-            and args.mesh_data not in (-1, args.world_size)):
-        raise ValueError(f"--mesh_data {args.mesh_data} must be -1 or the "
-                         f"world size ({args.world_size}): the data mesh is "
-                         f"one rank a process")
+    if not args.hostfile and not args.multiprocessing_distributed:
+        w, m = args.world_size, args.mesh_model
+        if w % m:
+            raise ValueError(f"--mesh_model {m} does not divide the world "
+                             f"size ({w})")
+        if args.mesh_data not in (-1, w // m):
+            raise ValueError(f"--mesh_data {args.mesh_data} must be -1 or "
+                             f"the world size over --mesh_model ({w} / {m}): "
+                             f"the data shards")
     ids = gpu_ids(args)
     if len(set(ids)) != len(ids):
         raise ValueError(f"--gpu/--gpu_id name a device twice: {ids}")

@@ -47,7 +47,7 @@ class AdaMML(nn.Module):
                  rng_policy: bool = False, rng_threshold: float = 0.5,
                  policy_input_size: int = 160,
                  eval_capacity: Optional[float] = None,
-                 capacity_groups: int = 1,
+                 capacity_groups: int = 1, data_shards: int = 1,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
                  remat_policy: bool = True,
@@ -69,6 +69,7 @@ class AdaMML(nn.Module):
             fusion_point=fusion_point,
             learnable_lf_weights=learnable_lf_weights,
             eval_capacity=eval_capacity, capacity_groups=capacity_groups,
+            data_shards=data_shards,
             use_pallas_dw=use_pallas_dw,
             fused_tpool=fused_tpool, remat=remat, remat_stages=remat_stages,
             dtype=dtype, bn_groups=bn_groups)

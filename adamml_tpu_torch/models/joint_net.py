@@ -9,10 +9,13 @@ joint_resnet_mobilenetv2.py:60-64,115-125).
 
 ``eval_capacity`` below 1 is eval-only conditional compute: per modality,
 the rows the decisions select are packed into ``cap`` rows of each of
-``capacity_groups`` contiguous blocks, the backbone runs on those rows
-only, and their logits scatter back (the rows that did not run give 0;
-a selection beyond ``cap`` in a block degrades to decision 0). The
-reference only models the saving (reference models/adamml.py:82-86).
+``capacity_groups`` contiguous blocks of the global batch, the backbone
+runs on those rows only, and their logits scatter back (the rows that did
+not run give 0; a selection beyond ``cap`` in a block degrades to decision
+0). The reference only models the saving (reference
+models/adamml.py:82-86). Over ``data_shards`` D ranks a count that is a
+multiple of D packs each rank's rows alone; any other count makes blocks
+that span ranks, and every rank plans them from the gathered decisions.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 
 from ..configs.config import input_channels_for
 from ..ops.dropout import dropout
+from ..parallel.mesh import data_world, gather_rows
 from .layers import Dense
 from .mobilenet_v2 import MobileNetV2
 from .resnet_tsn import ResNetTSN
@@ -42,7 +46,7 @@ class JointMainNet(nn.Module):
                  fusion_point: str = "logits",
                  learnable_lf_weights: bool = False,
                  eval_capacity: Optional[float] = None,
-                 capacity_groups: int = 1,
+                 capacity_groups: int = 1, data_shards: int = 1,
                  use_pallas_dw: bool = False, fused_tpool: bool = True,
                  remat: bool = False, remat_stages: Sequence[int] = (),
                  dtype: torch.dtype = torch.float32, bn_groups: int = 1):
@@ -52,7 +56,9 @@ class JointMainNet(nn.Module):
         self.modality = tuple(modality)
         self.fusion_point = fusion_point
         self.eval_capacity = eval_capacity
+        self.num_classes = num_classes
         self.capacity_groups = capacity_groups
+        self.data_shards = data_shards
         self.dropout = dropout
         self.dtype = dtype
         logits_head = fusion_point == "logits"
@@ -139,15 +145,21 @@ class JointMainNet(nn.Module):
     def _packed(self, i: int, x: torch.Tensor, dec: torch.Tensor
                 ) -> torch.Tensor:
         """Modality ``i``'s decision-masked logits (B, K) with its backbone
-        run on ``cap`` rows of each of G blocks (G = capacity_groups when it
-        divides B, else 1; cap = max(1, round(c * B / G))): a stable
-        descending argsort of each block's decisions puts the selected rows
-        first, ties in index order; the first cap rows run, their logits
-        times their decisions scatter back through the inverse permutation,
-        and the other rows get 0."""
-        b = x.shape[0]
-        g = (self.capacity_groups if self.capacity_groups > 1
-             and b % self.capacity_groups == 0 else 1)
+        run on ``cap`` rows of each of G blocks of the global batch of
+        B x D rows (G = capacity_groups when it divides them, else 1;
+        cap = max(1, round(c * B x D / G))): a stable descending argsort of
+        each block's decisions puts the selected rows first, ties in index
+        order; the first cap rows run, their logits times their decisions
+        scatter back, and the other rows get 0. When the blocks fall within
+        ranks (D divides G) a rank packs its own B rows in G / D blocks;
+        otherwise ``_packed_across``."""
+        b, d = x.shape[0], self.data_shards
+        g = self.capacity_groups
+        if not (g > 1 and (b * d) % g == 0):
+            g = 1
+        if d > 1 and g % d:
+            return self._packed_across(i, x, dec, g)
+        g //= d
         bl = b // g
         cap = max(1, int(round(self.eval_capacity * bl)))
         dec = dec.reshape(g, bl)
@@ -165,3 +177,30 @@ class JointMainNet(nn.Module):
         inv = torch.argsort(order, dim=1)
         return torch.gather(lp_sorted, 1,
                             inv[..., None].expand(g, bl, k)).reshape(b, k)
+
+    def _packed_across(self, i: int, x: torch.Tensor, dec: torch.Tensor,
+                       g: int) -> torch.Tensor:
+        """``_packed`` for blocks that span ranks: the data shards'
+        decisions gathered (one value a row), every rank makes the same
+        global plan and runs its backbone only on its own rows of the run
+        set (none: no launch), so no input row moves between ranks. A row's
+        eval logits depend on that row alone (eval BN reads running
+        statistics), so this computes the single-device function."""
+        shards, index = data_world()
+        if shards != self.data_shards:
+            raise ValueError(f"the model packs over {self.data_shards} data "
+                             f"shards, the process group has {shards}")
+        b = x.shape[0]
+        every = gather_rows(dec).to(dec.device)                # (B x D,)
+        bl = every.shape[0] // g
+        cap = max(1, int(round(self.eval_capacity * bl)))
+        order = torch.argsort(-every.reshape(g, bl), dim=1, stable=True)
+        run = (order[:, :cap]
+               + bl * torch.arange(g, device=dec.device)[:, None]).flatten()
+        mine = run[(run >= index * b) & (run < (index + 1) * b)] - index * b
+        net = getattr(self, f"net_{self.modality[i]}")
+        if mine.numel() == 0:
+            return torch.zeros((b, self.num_classes), dtype=torch.float32,
+                               device=x.device)
+        lp = net(x[mine], False) * dec[mine][:, None]
+        return lp.new_zeros((b, lp.shape[-1])).index_copy_(0, mine, lp)

@@ -9,9 +9,13 @@ convolution reads and writes it in place and no layout copy happens.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import Shard, column_parallel_linear, param_shard
 
 
 class Conv(nn.Module):
@@ -37,7 +41,10 @@ class Conv(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``weight`` (O, I), ``bias`` (O,)."""
+    """flax ``nn.Dense``: ``weight`` (O, I), ``bias`` (O,). After
+    ``shard_(shard)`` the weight holds only the shard's rows (the tensor-
+    parallel column shard, parallel/mesh.py) and the layer computes the
+    full output by ``column_parallel_linear``."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -46,9 +53,22 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
+    @property
+    def shard(self) -> Optional[Shard]:
+        return param_shard(self.weight)
+
+    @torch.no_grad()
+    def shard_(self, shard: Shard) -> None:
+        """Keep ``shard``'s rows of the full weight."""
+        self.weight = nn.Parameter(shard.rows(self.weight).clone())
+        self.weight.model_shard = shard
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.shard is not None:
+            return column_parallel_linear(x, w, self.bias.to(self.dtype),
+                                          self.shard)
+        return F.linear(x, w, self.bias.to(self.dtype))
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

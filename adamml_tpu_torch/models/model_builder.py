@@ -15,7 +15,7 @@ from torch import nn
 
 from ..configs.config import ExperimentConfig, arch_name
 from ..ops.spectrogram import SpectrogramConfig
-from ..parallel.mesh import active
+from ..parallel.mesh import Shard, active, layout, model_group, shards_param
 from ..utils.device import resolve_device
 from .adamml import AdaMML
 from .layers import Conv, Dense
@@ -32,29 +32,26 @@ def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
 
 
 def _data_shards(cfg: ExperimentConfig) -> int:
-    """Size of the data mesh: one shard a rank (parallel/mesh.py writes the
-    world size into ``cfg.runtime``)."""
-    return max(1, cfg.runtime.world_size)
+    """Size of the data mesh, W / M: one shard a data index
+    (parallel/mesh.py writes the world size into ``cfg.runtime``;
+    adamml_tpu/models/model_builder.py:34-40)."""
+    return max(1, max(1, cfg.runtime.world_size)
+               // max(1, cfg.runtime.mesh_model))
 
 
 def _capacity_groups(cfg: ExperimentConfig) -> int:
     """The global packing-group count for eval_capacity
     (models/joint_net.py): one group per data shard, as in the JAX
     package, unless --capacity_groups pins it, so capacity-eval accuracy
-    does not depend on the device count. Each rank packs its own rows in
-    G / W of them, so G must be a multiple of the world size W (packing
-    across ranks is ROADMAP A.21). The engine's capacity-drop count uses
-    this same resolver (train/engine.py validate)."""
-    shards = _data_shards(cfg)
+    does not depend on the device count. A count that is a multiple of the
+    data shards packs each rank's rows alone; any other packs blocks that
+    span ranks. The engine's capacity-drop count uses this same resolver
+    (train/engine.py validate)."""
     g = cfg.model.capacity_groups
     if g is None:
-        return shards
+        return _data_shards(cfg)
     if g < 1:
         raise ValueError(f"--capacity_groups must be >= 1, got {g}")
-    if g % shards:
-        raise ValueError(
-            f"--capacity_groups {g} is not a multiple of the world size "
-            f"{shards}: packing across ranks is not ported (ROADMAP A.21)")
     return g
 
 
@@ -73,7 +70,10 @@ def build_model(cfg: ExperimentConfig, device: Device = None,
     BN R moment groups in one process, the JAX package's one-process data
     mesh of R shards (the single-process reference of an R-rank run);
     default ``_bn_groups``. Under --sync-bn in a process group every BN
-    takes its moments over all ranks."""
+    takes its moments over all data shards. At --mesh_model M > 1 the full
+    model is made from the seed as always, then each weight that
+    ``shards_param`` names keeps its model index's rows (``shard_model``),
+    so the M-way model is the single model, split."""
     dev = resolve_device(device)
     m = cfg.model
     dtype = compute_dtype(cfg)
@@ -89,7 +89,8 @@ def build_model(cfg: ExperimentConfig, device: Device = None,
             rng_threshold=m.rng_threshold,
             policy_input_size=m.policy_input_size,
             eval_capacity=m.eval_capacity,
-            capacity_groups=_capacity_groups(cfg) // _data_shards(cfg),
+            capacity_groups=_capacity_groups(cfg),
+            data_shards=_data_shards(cfg),
             use_pallas_dw=m.use_pallas_dw,
             fused_tpool=m.fused_tpool, remat=m.remat_backbone,
             remat_stages=m.remat_stages, remat_policy=m.remat_policy,
@@ -114,7 +115,21 @@ def build_model(cfg: ExperimentConfig, device: Device = None,
         for mod in model.modules():
             if isinstance(mod, GroupedBatchNorm):
                 mod.sync = True
-    return model.to(dev), arch_name(cfg)
+    return shard_model(model.to(dev)), arch_name(cfg)
+
+
+def shard_model(model: nn.Module) -> nn.Module:
+    """Cut every weight that ``shards_param`` names to this rank's rows
+    over the joined run's model group (a no-op at --mesh_model 1)."""
+    got = layout()
+    if got.model > 1:
+        shard = Shard(got.model, got.model_index, model_group())
+        for name, mod in model.named_modules():
+            if (isinstance(mod, Dense)
+                    and shards_param(f"{name}.weight", mod.weight,
+                                     got.model)):
+                mod.shard_(shard)
+    return model
 
 
 def count_params_flops_summary(model: nn.Module, cfg: ExperimentConfig

@@ -19,8 +19,8 @@ m = 0.9. They move once per forward: ``update_stats`` is False while a
 checkpointed forward is recomputed (models/remat.py).
 
 ``sync`` (set by the model builder for --sync-bn in a process group,
-parallel/mesh.py) takes the moments over every rank's rows: the local
-(S, C) mean and mean of squares are averaged over the ranks by a
+parallel/mesh.py) takes the moments over every data shard's rows: the
+local (S, C) mean and mean of squares are averaged over the data group by a
 differentiable all-reduce (equal local batches, so that is the global
 sum over the global count), and the running update counts the global
 rows. At world size 1 the average is x / 1, the same bits as without it.
@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.mesh import all_reduce_mean, world
+from ..parallel.mesh import all_reduce_mean, data_world
 
 EPSILON = 1e-5  # every BN of the JAX models (adamml_tpu/models/norm.py:39)
 MOMENTUM = 0.9  # adamml_tpu/models/norm.py:38
@@ -78,7 +78,7 @@ class GroupedBatchNorm(nn.Module):
         count = x.numel() // (r * sq * c)
         if self.sync:
             mean, meansq = all_reduce_mean(torch.stack([mean, meansq]))
-            count *= world()[0]
+            count *= data_world()[0]
         var = meansq - mean * mean
         if self.update_stats:
             self._update_running(mean[0], var[0], count)

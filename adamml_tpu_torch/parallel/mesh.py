@@ -1,4 +1,4 @@
-"""Data-parallel runs over processes: the counterpart of
+"""Data- and tensor-parallel runs over processes: the counterpart of
 ``adamml_tpu/parallel/mesh.py`` and of the JAX CLI's ``init_distributed``.
 
 The JAX package runs a W-way data mesh as one program: the global batch is
@@ -23,10 +23,23 @@ single-device step on the global batch with ``bn_groups = W`` (or 1 under
   * ``local_noise``: a draw for the global batch of which a rank keeps its
     own rows, so noise does not depend on the world size.
 
+A run of W ranks at ``--mesh_model`` M is the JAX package's (W / M, M)
+mesh: rank r has data index r // M and model index r % M (the row-major
+reshape of ``make_mesh``). The D = W / M ranks of one model index form a
+data group, the M ranks of one data index a model group; the helpers above
+run over the data group (model peers hold the same rows). The wide Dense
+weights that ``shards_param`` names (the JAX package's ``_spec_for_param``)
+keep only their model index's rows on a rank, and ``column_parallel_linear``
+computes their layer: the output columns of the rank's rows, gathered over
+the model group. Under GSPMD such a mesh computes the (W / M, 1) mesh's
+function, and so does the port. At M = 1 no group but the default one is
+made, and the data group is the world.
+
 The process group is ``torch.distributed``'s default group. Without one
 every helper is the identity and launches nothing, so a run of one process
 is the single-device step bit for bit. With a group, even of one, the
-collectives run.
+collectives run, except the data group's when it is one rank beside a
+model axis (D = 1 at M > 1).
 """
 
 from __future__ import annotations
@@ -45,15 +58,47 @@ DEFAULT_TIMEOUT_S = 600.0
 BACKENDS = ("nccl", "gloo")
 
 
+# module names whose Dense weight is column-sharded over the model group
+# (adamml_tpu/parallel/mesh.py:65-70), matched exactly against the
+# weight's parent module name
+TP_MODULES = frozenset(
+    {"joint_fc1", "joint_fc2", "fc", "classifier", "ih", "hh"})
+
+
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The run's data-parallel layout: ``backend`` None means one process
-    with no process group."""
+    """The run's layout: ``backend`` None means one process with no process
+    group; ``data`` x ``model`` = ``world`` ranks, this one at
+    (``data_index``, ``model_index``)."""
 
     world: int
     rank: int
     device: torch.device
     backend: Optional[str]
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A weight's share on this rank: rows [index * n / size, (index + 1) *
+    n / size) of the full (out, in) weight, its layer's outputs gathered
+    over ``group`` (the model group)."""
+
+    size: int
+    index: int
+    group: object
+
+    def rows(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a full tensor (dim 0)."""
+        n = full.shape[0] // self.size
+        return full.narrow(0, self.index * n, n)
+
+
+# (mesh, data group, model group) of the joined run; None without one
+_LAYOUT: Optional[Tuple[DataMesh, object, object]] = None
 
 
 def parse_hostfile(lines, current_node: str):
@@ -120,9 +165,13 @@ def init_distributed(cfg, device, backend: Optional[str] = None,
         return DataMesh(1, 0, dev, None)
     url, world, rank = where
     r = cfg.runtime
-    if r.mesh_data not in (-1, world):
-        raise ValueError(f"--mesh_data {r.mesh_data} must be -1 or the world "
+    model = r.mesh_model
+    if model < 1 or world % model:
+        raise ValueError(f"--mesh_model {model} does not divide the world "
                          f"size {world}")
+    if r.mesh_data not in (-1, world // model):
+        raise ValueError(f"--mesh_data {r.mesh_data} must be -1 or the world "
+                         f"size over --mesh_model ({world} / {model})")
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend not in BACKENDS:
         raise ValueError(f"--dist-backend {backend!r}: the port runs "
@@ -144,11 +193,36 @@ def init_distributed(cfg, device, backend: Optional[str] = None,
         # (which a CUDA-graph capture must not be)
         device_id=dev if backend == "nccl" else None)
     r.world_size, r.rank = world, rank
-    return DataMesh(world, rank, dev, backend)
+    got = DataMesh(world, rank, dev, backend, world // model, model,
+                   rank // model, rank % model)
+    _set_layout(got, dev if backend == "nccl" else None)
+    return got
+
+
+def _set_layout(got: DataMesh, device_id) -> None:
+    """Make the data and model groups (every rank makes every group, in the
+    same order, as ``new_group`` asks) and keep this rank's."""
+    global _LAYOUT
+    data_group = model_group = None
+    if got.model > 1:
+        d, m = got.data, got.model
+        for j in range(m):
+            g = dist.new_group([i * m + j for i in range(d)],
+                               device_id=device_id)
+            if j == got.model_index:
+                data_group = g
+        for i in range(d):
+            g = dist.new_group([i * m + j for j in range(m)],
+                               device_id=device_id)
+            if i == got.data_index:
+                model_group = g
+    _LAYOUT = (got, data_group, model_group)
 
 
 def shutdown() -> None:
     """Leave the process group, if one was joined."""
+    global _LAYOUT
+    _LAYOUT = None
     if active():
         dist.destroy_process_group()
 
@@ -171,6 +245,37 @@ def world() -> Tuple[int, int]:
     return dist.get_world_size(), dist.get_rank()
 
 
+def layout() -> DataMesh:
+    """The joined run's layout (a process without a group: 1 x 1)."""
+    if _LAYOUT is None:
+        return DataMesh(1, 0, torch.device("cpu"), None)
+    return _LAYOUT[0]
+
+
+def data_world() -> Tuple[int, int]:
+    """(data shards D, this rank's data index); (1, 0) without a group."""
+    got = layout()
+    return got.data, got.data_index
+
+
+def _data_group():
+    """The data group (None: the default group, the world at M = 1)."""
+    return _LAYOUT[1] if _LAYOUT is not None else None
+
+
+def model_group():
+    """This rank's model group; None unless --mesh_model is above 1."""
+    return _LAYOUT[2] if _LAYOUT is not None else None
+
+
+def _data_collectives() -> bool:
+    """Whether the data group's collectives run: in a process group, but
+    not over a data group of one beside a model axis (D = 1 at M > 1),
+    where each would copy a tensor onto itself."""
+    got = layout()
+    return active() and not (got.model > 1 and got.data == 1)
+
+
 def backend_name() -> Optional[str]:
     return dist.get_backend() if active() else None
 
@@ -185,31 +290,32 @@ def barrier() -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks; the backward sums the cotangent over ranks."""
+    """Sum over the data group; the backward sums the cotangent over it."""
 
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=_data_group())
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=_data_group())
         return g
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable mean of ``x`` over ranks (x itself without a group;
-    at world size 1 the same bits, since x / 1 == x)."""
-    if not active():
+    """Differentiable mean of ``x`` over the data group (x itself without a
+    group; at one data shard the same bits, since x / 1 == x)."""
+    if not _data_collectives():
         return x
-    return _AllReduceSum.apply(x) / dist.get_world_size()
+    return _AllReduceSum.apply(x) / data_world()[0]
 
 
 class GradAllReduce:
-    """The average over ranks of ``params``' gradients, through one flat
+    """The average over the data group of ``params``' gradients (a sharded
+    weight's data peers hold the same rows), through one flat
     float32 buffer made at the first call (before any CUDA-graph capture,
     which then reuses it): the gradients are copied in, reduced by one
     collective and copied back. A parameter without a gradient adds zeros
@@ -222,7 +328,7 @@ class GradAllReduce:
         self.views: List[torch.Tensor] = []
 
     def __call__(self) -> None:
-        if not active() or not self.params:
+        if not _data_collectives() or not self.params:
             return
         if self.flat is None:
             self.flat = torch.empty(sum(p.numel() for p in self.params),
@@ -238,21 +344,21 @@ class GradAllReduce:
         views, grads = [v for v, _ in have], [g for _, g in have]
         if grads:
             torch._foreach_copy_(views, grads)
-        dist.all_reduce(self.flat)
-        self.flat.div_(dist.get_world_size())
+        dist.all_reduce(self.flat, group=_data_group())
+        self.flat.div_(data_world()[0])
         if grads:
             torch._foreach_copy_(grads, views)
 
 
 def average_metrics(metrics: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-    """Each metric's mean over ranks, by one collective."""
-    if not active():
+    """Each metric's mean over the data group, by one collective."""
+    if not _data_collectives():
         return metrics
     keys = list(metrics)
     flat = torch.cat([metrics[k].reshape(-1).float() for k in keys])
-    dist.all_reduce(flat)
-    flat.div_(dist.get_world_size())
+    dist.all_reduce(flat, group=_data_group())
+    flat.div_(data_world()[0])
     out, at = {}, 0
     for k in keys:
         n = metrics[k].numel()
@@ -285,38 +391,174 @@ def bn_statistics(module: torch.nn.Module) -> List[torch.Tensor]:
 
 
 def broadcast_module(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers to every rank."""
-    broadcast_tensors([p.data for p in module.parameters()]
-                      + list(module.buffers()))
+    """Rank 0's replicated parameters and its buffers to every rank (a
+    sharded weight's rows differ from rank to rank)."""
+    broadcast_tensors([p.data for p in module.parameters()
+                       if param_shard(p) is None] + list(module.buffers()))
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` of every rank of ``group`` concatenated along ``dim`` in group
+    order. Under NCCL the gather runs on the card; gloo cannot all-gather
+    CUDA tensors, so there it gathers host copies and the result is on the
+    CPU."""
+    src = x.contiguous() if dist.get_backend(group) == "nccl" else x.cpu()
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order (``x``
-    itself without a group). Under NCCL the gather runs on the card; gloo
-    cannot all-gather CUDA tensors, so there it gathers host copies and the
-    result is on the CPU."""
-    if not active():
+    """Every data shard's ``x`` concatenated along ``dim`` in data-index
+    order (``x`` itself without a group); on the CPU under gloo."""
+    if not _data_collectives():
         return x
-    src = x.contiguous() if dist.get_backend() == "nccl" else x.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, src)
-    return torch.cat(parts, dim=dim)
+    return _all_gather(x, dim, _data_group())
 
 
 def local_noise(draw: Callable[[Tuple[int, ...]], torch.Tensor],
                 shape: Sequence[int], dim: int = 0) -> torch.Tensor:
     """A noise tensor for this rank's rows: ``draw`` makes the global
-    batch's noise (``shape`` with ``dim`` times the world size, ranks'
-    rows in rank order) and the rank keeps its block, so a W-rank step
-    draws what the single process draws on the global batch. Without a
-    group, ``draw(shape)``."""
-    w, r = world()
+    batch's noise (``shape`` with ``dim`` times the data shards, their rows
+    in data-index order) and the rank keeps its data index's block, so a
+    W-rank step draws what the single process draws on the global batch,
+    and model peers draw the same. Without a group, ``draw(shape)``."""
+    w, r = data_world()
     shape = tuple(shape)
     if w == 1:
         return draw(shape)
     n = shape[dim]
     full = shape[:dim] + (n * w,) + shape[dim + 1:]
     return draw(full).narrow(dim, r * n, n)
+
+
+def shards_param(name: str, tensor: torch.Tensor, model: int) -> bool:
+    """Whether parameter ``name`` is column-sharded over a model axis of
+    ``model``: the port's ``_spec_for_param``
+    (adamml_tpu/parallel/mesh.py:77-83). A torch Dense ``weight`` is
+    (out, in), so flax's column shard of the (in, out) kernel is its row
+    shard; biases stay replicated."""
+    names = name.split(".")
+    return (model > 1 and tensor.dim() == 2 and len(names) >= 2
+            and names[-1] == "weight" and names[-2] in TP_MODULES
+            and tensor.shape[0] % model == 0)
+
+
+def param_shard(p: torch.Tensor) -> Optional[Shard]:
+    """The ``Shard`` of a sharded parameter, None for a replicated one."""
+    return getattr(p, "model_shard", None)
+
+
+def _model_gather(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The full tensor of every model peer's rows, on ``t``'s device."""
+    return _all_gather(t.detach(), 0, shard.group).to(t.device)
+
+
+def full_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` with each sharded weight gathered to its
+    full rows (a collective over the model group: every rank calls it)."""
+    sd = module.state_dict()
+    for name, p in module.named_parameters():
+        sh = param_shard(p)
+        if sh is not None:
+            sd[name] = _model_gather(p, sh)
+    return sd
+
+
+def shard_state_dict(module: torch.nn.Module,
+                     sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A full state dict cut to ``module``'s shards: each sharded weight's
+    entry keeps this rank's rows."""
+    sd = dict(sd)
+    for name, p in module.named_parameters():
+        sh = param_shard(p)
+        if sh is not None and name in sd:
+            sd[name] = sh.rows(sd[name])
+    return sd
+
+
+def _optimizer_params(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The parameters in the order of the state dict's indices."""
+    return [p for g in opt.param_groups for p in g["params"]]
+
+
+def full_optimizer_state(opt: torch.optim.Optimizer) -> dict:
+    """``opt.state_dict()`` with each sharded parameter's per-element state
+    (SGD momentum, Adam moments) gathered to its full rows."""
+    sd = opt.state_dict()
+    params = _optimizer_params(opt)
+    state = {}
+    for i, st in sd["state"].items():
+        sh = param_shard(params[i])
+        state[i] = st if sh is None else {
+            k: _model_gather(v, sh) if _per_element(v, params[i]) else v
+            for k, v in st.items()}
+    return {**sd, "state": state}
+
+
+def shard_optimizer_state(opt: torch.optim.Optimizer, sd: dict) -> dict:
+    """A full optimizer state dict cut to ``opt``'s parameters' shards."""
+    params = _optimizer_params(opt)
+    state = {}
+    for i, st in sd["state"].items():
+        p = params[int(i)]
+        sh = param_shard(p)
+        state[i] = st if sh is None else {
+            k: sh.rows(v) if _per_element(v, p, sh.size) else v
+            for k, v in st.items()}
+    return {**sd, "state": state}
+
+
+def _per_element(v, p: torch.Tensor, size: int = 1) -> bool:
+    """Whether ``v`` is per-element state of ``p`` (or of ``p``'s full
+    tensor of ``size`` shards)."""
+    return (torch.is_tensor(v) and v.dim() == p.dim() and v.dim() > 0
+            and v.shape[0] == size * p.shape[0]
+            and v.shape[1:] == p.shape[1:])
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; the backward sums the cotangent over the model group
+    (each model peer's share of the input gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.to(torch.float32, copy=True)
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(g.dtype), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The model peers' output columns concatenated in model-index order;
+    the backward keeps this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, y, group, index):
+        ctx.index, ctx.width = index, y.shape[-1]
+        return _all_gather(y, y.dim() - 1, group).to(y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.index * ctx.width,
+                        ctx.width).contiguous(), None, None
+
+
+def column_parallel_linear(x: torch.Tensor, weight: torch.Tensor,
+                           bias: Optional[torch.Tensor],
+                           shard: Shard) -> torch.Tensor:
+    """``F.linear(x, full_weight, bias)`` from this rank's rows of the
+    weight: the rank's output columns, gathered over the model group, then
+    the replicated bias (as flax's Dense adds it after the product)."""
+    x = _CopyToModel.apply(x, shard.group)
+    y = _GatherFromModel.apply(torch.nn.functional.linear(x, weight),
+                               shard.group, shard.index)
+    return y if bias is None else y + bias
 
 
 def launch(run: Callable, cfg, devices: Sequence[str],

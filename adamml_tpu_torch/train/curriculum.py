@@ -23,10 +23,11 @@ number of times (``split_seed``); each sub-seed feeds the steps'
 per-step generators (``steps.step_generators``).
 
 In a data-parallel run (the process group of parallel/mesh.py, joined
-before the trainer is made) each rank loads its shard of every global
-batch of ``-b`` rows, rank 0's model is broadcast once it is built and
-grafted, rank 0 logs and writes the checkpoints and artifacts, and every
-rank validates on the gathered outputs, so all ranks take the same
+before the trainer is made) each rank loads its data shard of every global
+batch of ``-b`` rows (model peers at --mesh_model > 1 load the same rows),
+rank 0's replicated parameters and buffers are broadcast once the model is
+built and grafted, rank 0 logs and writes the checkpoints and artifacts,
+and every rank validates on the gathered outputs, so all ranks take the same
 decisions (model_best, plateau steps).
 """
 
@@ -51,7 +52,7 @@ from ..data.synthetic import SyntheticVideoDataset
 from ..data.video_dataset import MultiVideoDataset
 from ..models.adamml import INIT_TEMPERATURE, TEMPERATURE_DECAY
 from ..models.model_builder import _capacity_groups, build_model
-from ..parallel.mesh import broadcast_module, world
+from ..parallel.mesh import broadcast_module, data_world, layout, world
 from ..utils.device import resolve_device
 from ..utils.logging import RankZeroLogger
 from ..utils.profiling import StepProfiler
@@ -104,13 +105,14 @@ def _make_dataset(cfg: ExperimentConfig, *, is_train: bool, num_clips: int):
 
 
 def _make_loader(cfg: ExperimentConfig, dataset, *, is_train: bool):
-    """This rank's shard of the global batch of ``-b`` rows: ``-b // W``
-    rows a batch from shard ``rank`` of W (adamml_tpu/train/curriculum.py
+    """This rank's shard of the global batch of ``-b`` rows: ``-b // D``
+    rows a batch from shard ``d`` of the D data shards, d the rank's data
+    index (model peers load the same rows; adamml_tpu/train/curriculum.py
     ``_make_loader``)."""
-    w, rank = world()
+    w, rank = data_world()
     if cfg.optim.batch_size % w:
         raise ValueError(f"-b {cfg.optim.batch_size} does not divide over "
-                         f"the {w} ranks")
+                         f"the {w} data shards")
     return HostDataLoader(
         dataset, cfg.optim.batch_size // w, is_train=is_train,
         input_size=cfg.data.input_size, augmentor_ver=cfg.data.augmentor_ver,
@@ -129,6 +131,10 @@ def _rank(cfg: ExperimentConfig) -> int:
             f"the config asks for world size {cfg.runtime.world_size}, the "
             f"process group has {w} (join it first: "
             f"parallel/mesh.py::init_distributed)")
+    if layout().model != max(1, cfg.runtime.mesh_model):
+        raise ValueError(
+            f"the config asks for --mesh_model {cfg.runtime.mesh_model}, "
+            f"the process group has {layout().model}")
     return rank
 
 

@@ -30,7 +30,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import gather_rows, world
+from ..parallel.mesh import data_world, gather_rows
 from ..utils.flops import flops_computation
 from ..utils.meters import AverageMeter
 from ..utils.metrics import actnet_acc
@@ -66,11 +66,11 @@ def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 
 
 def _gathered(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Each batch's rows from every rank in rank order, the layout of a
-    batch-sharded output gathered over the processes
+    """Each batch's rows from every data shard in data-index order, the
+    layout of a batch-sharded output gathered over the processes
     (data/dataflow.py::global_valid_masks); per-batch scalars (the mean
-    losses of equal local batches) become their mean over the ranks."""
-    if not tensors or world()[0] == 1:
+    losses of equal local batches) become their mean over the shards."""
+    if not tensors or data_world()[0] == 1:
         return tensors
     stacked = torch.stack(tensors)
     if stacked.dim() == 1:

@@ -30,6 +30,9 @@ from __future__ import annotations
 from typing import Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import param_shard
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -186,12 +189,33 @@ def build_optimizer(kind: str, cfg_optim,
 
 
 def clip_by_global_norm(params: Iterable[torch.nn.Parameter],
-                        max_norm: Optional[float]) -> None:
+                        max_norm: Optional[float]
+                        ) -> Optional[torch.Tensor]:
     """Whole-model global-norm clip of the gradients present (reference
     utils/utils.py:392-393): scale = min(1, max_norm / (norm + 1e-6)), the
-    formula of ``clip_grad_norm_``, which reads nothing back to the host."""
-    if max_norm is not None:
-        torch.nn.utils.clip_grad_norm_(params, max_norm, foreach=True)
+    formula of ``clip_grad_norm_``, which reads nothing back to the host.
+    Returns the norm (None when ``max_norm`` is None). With tensor-parallel
+    shards the norm counts each replicated gradient once and sums each
+    sharded gradient's squares over the model group, so every rank takes
+    the single process's norm and scale."""
+    if max_norm is None:
+        return None
+    params = [p for p in params if p.grad is not None]
+    shards = [param_shard(p) for p in params]
+    if all(sh is None for sh in shards):
+        return torch.nn.utils.clip_grad_norm_(params, max_norm, foreach=True)
+    grads = [p.grad for p in params]
+    norms = torch._foreach_norm(grads)
+    rep = [n for n, sh in zip(norms, shards) if sh is None]
+    sharded = torch.stack([n for n, sh in zip(norms, shards)
+                           if sh is not None]).float().square().sum()
+    dist.all_reduce(sharded, group=next(sh for sh in shards
+                                        if sh is not None).group)
+    norm = (sharded + torch.stack(rep).float().square().sum()
+            if rep else sharded).sqrt()
+    coef = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    torch._foreach_mul_(grads, coef)
+    return norm
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:

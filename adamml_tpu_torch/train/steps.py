@@ -11,12 +11,13 @@ generators derived from (seed, step), the counterpart of ``_step_rngs``.
 one captured CUDA graph, replayed (``_GraphedSteps``).
 
 In a process group (parallel/mesh.py) a step is one rank's share of the
-data-parallel step: the live gradients are averaged over the ranks between
+parallel step: the live gradients are averaged over the data group between
 backward and the clip (the clip sees the global gradient, as JAX's psum
-before ``clip_by_global_norm``), the metrics are averaged over the ranks,
-and with per-replica BN rank 0's BN statistics are broadcast after the
-update (DDP's broadcast_buffers), so every rank ends the step with the same
-parameters, statistics and metrics. Without a group none of this runs.
+before ``clip_by_global_norm``), the metrics are averaged over it, and
+with per-replica BN rank 0's BN statistics are broadcast after the update
+(DDP's broadcast_buffers), so every rank ends the step with the same
+replicated parameters, statistics and metrics (model peers hold their own
+rows of the sharded weights). Without a group none of this runs.
 """
 
 from __future__ import annotations

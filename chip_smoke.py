@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-(``chip_smoke.py --mp-worker ...`` is one rank of the multi_process phase,
-started by the script itself.)
+(``chip_smoke.py --mp-worker ...`` is one rank of the multi_process or
+tensor_parallel phase, started by the script itself.)
 
 Phases, each printing one JSON line (or several):
 
@@ -18,9 +18,11 @@ Phases, each printing one JSON line (or several):
   kernel      the fused epilogue's forward kernel against its plain PyTorch
               version, at the flagship eval shapes and at grouped, float32
               and odd-F cases, with CUDA-event times beside the bound;
+              then on a channel block against its full-C launch;
   kernel_bwd  the backward kernel against its plain version, at the three
               flagship train shapes (R = 1, S = 5), float32, odd F, R = 2
-              and an engineered tie, with the same timings;
+              and an engineered tie, with the same timings; then on a
+              channel block against its full-C launch;
   serve       the flagship AdaMML eval step at full width (ResNet-50 +
               MobileNetV2 audio, rgb + sound, 5 segments x 8 frames,
               224x224, LSTM policy, learnable late fusion, bf16, 31
@@ -121,6 +123,20 @@ Phases, each printing one JSON line (or several):
               the dataset's rows, checkpoints from rank 0 alone,
               model_best loaded on both ranks), then train_unimodal with
               --multiprocessing-distributed;
+  tensor_parallel  --mesh_model and packing across ranks, every rank a
+              process over gloo sharing the card: (a) the flagship at
+              (1, 2), 3 main and 3 policy steps on all 8 clips (ranks
+              bit-identical after every step, the four sharded policy
+              layers, each rank's epilogue launches and main-step trace,
+              the collectives' calls, bytes and ms, ms per step against
+              world size 1, peak memory), (b) the tiny float32 config at
+              (1, 2) against the single process, (c) the main net at
+              (2, 1) with eval capacity 0.5 in 5 blocks of the 40 rows
+              (one spans the ranks) against the single process, its
+              capacity_dropped and epilogue row counts, (d) train_adamml
+              at --mesh_model 2 (equal Val lines, rank 0's unsharded
+              checkpoint), then -e --pretrained on it at (1, 2) and at
+              world size 1 (one Val line);
   kernels     one object per ported kernel, as in PERF.md's table.
 
 Then nvidia-smi's name and power limit, and last
@@ -165,7 +181,7 @@ from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
 from adamml_tpu_torch.tools import (bench_depthwise, bench_pipeline,
                                     bench_tpool)
 from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                           bound_ms, event_ms,
+                                           bf16_ulp, bound_ms, event_ms,
                                            l2_flush_buffer, nvidia_smi,
                                            within_one_bf16_ulp)
 from adamml_tpu_torch.train import curriculum as cur
@@ -306,7 +322,33 @@ def kernel_phase(dev) -> dict:
             res["ops_s"] += ops_s
         emit("kernel", **line)
         del y, ident, got, want
+    _kernel_channel_block(dev, gen)
     return res
+
+
+def _block(t, lo, hi):
+    return t[..., lo:hi].contiguous()
+
+
+def _kernel_channel_block(dev, gen) -> None:
+    """The forward kernel on the upper 'model' channel block [C/2, C) of
+    the stage-2 shape (the JAX kernel's shard-local channel block,
+    tests/test_tpool_sharded.py's 2-D mesh), with the affine's matching
+    slice, against that block of its full-C launch: bit for bit."""
+    n, f, h, w, c = 40, 4, 28, 28, 512
+    lo, hi = c // 2, c
+    y, ident = (torch.randn((n, f, h, w, c), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+    a = 1.0 + 0.3 * torch.randn((1, 5, c), generator=gen, device=dev)
+    b = 0.1 * torch.randn((1, 5, c), generator=gen, device=dev)
+    whole = tp.fused_bn_add_relu_tpool(y, ident, a, b)
+    got = tp.fused_bn_add_relu_tpool(*(_block(v, lo, hi)
+                                       for v in (y, ident, a, b)))
+    check(torch.equal(got, _block(whole, lo, hi)),
+          "channel_block: the forward kernel on channels "
+          f"[{lo}, {hi}) differs from that block of its full-C launch")
+    emit("kernel", case="channel_block", shape=[n, f, h, w, c], R=1, S=5,
+         channels=[lo, hi], dtype="bfloat16", bit_equal_to_full_c=True)
 
 
 def tpool_bwd_work(n, f, h, w, c, itemsize):
@@ -430,8 +472,39 @@ def kernel_bwd_phase(dev) -> dict:
             res["ops_s"] += ops_s
         emit("kernel_bwd", **line)
         del y, ident, a, b, ct, got, want
+    _kernel_bwd_channel_block(dev, gen)
     torch.cuda.empty_cache()
     return res
+
+
+def _kernel_bwd_channel_block(dev, gen) -> None:
+    """The backward kernel on the upper channel block [C/2, C) of the
+    stage-2 train shape against that block of its full-C launch: dy and
+    dident bit for bit; da and db hold per-channel sums whose order
+    follows the launch geometry, which depends on C (tpool_fused_bwd.cu
+    ``geometry``), so they are held to the full-C check's 1e-4 of their
+    largest entry and their bit equality is reported."""
+    n, f, h, w, c = 40, 4, 28, 28, 512
+    lo, hi = c // 2, c
+    args = _bwd_case_inputs("block", n, f, h, w, c, 1, 5, torch.bfloat16,
+                            gen, dev)
+    whole = tp.fused_bn_add_relu_tpool_bwd(*args)
+    got = tp.fused_bn_add_relu_tpool_bwd(*(_block(v, lo, hi) for v in args))
+    for g, w_, what in zip(got[:2], whole[:2], ("dy", "dident")):
+        check(torch.equal(g, _block(w_, lo, hi)),
+              f"channel_block: {what} of the backward kernel on channels "
+              f"[{lo}, {hi}) differs from that block of its full-C launch")
+    rel = max(float((g - _block(w_, lo, hi)).abs().max())
+              / max(float(w_.abs().max()), 1e-30)
+              for g, w_ in zip(got[2:], whole[2:]))
+    check(rel <= 1e-4, f"channel_block: da/db off by {rel} of their largest "
+                       "entry (tolerance 1e-4)")
+    emit("kernel_bwd", case="channel_block", shape=[n, f, h, w, c], R=1,
+         S=5, channels=[lo, hi], dtype="bfloat16",
+         dy_dident_bit_equal_to_full_c=True,
+         da_db_bit_equal_to_full_c=all(torch.equal(g, _block(w_, lo, hi))
+                                       for g, w_ in zip(got[2:], whole[2:])),
+         rel_err_da_db=rel)
 
 
 def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
@@ -2282,11 +2355,19 @@ def _mp_batches(cfg, batch, n, seed, dev):
 
 
 def _mp_rows(batch, rank, world):
-    """This rank's rows of a global batch."""
+    """This rank's rows of a global batch: block ``rank`` of ``world``."""
     inputs, target = batch
     n = target.shape[0] // world
     return [x[rank * n:(rank + 1) * n] for x in inputs], \
         target[rank * n:(rank + 1) * n]
+
+
+def _mp_full(model) -> dict:
+    """The model's state with sharded weights gathered (a collective over
+    the model group at --mesh_model > 1)."""
+    from adamml_tpu_torch.parallel import mesh
+
+    return {k: v.clone() for k, v in mesh.full_state_dict(model).items()}
 
 
 def _mp_compare(mine, theirs, rtol, p_lr) -> list:
@@ -2325,14 +2406,17 @@ def _mp_compare(mine, theirs, rtol, p_lr) -> list:
     return out
 
 
-def _mp_tiny_run(cfg, batch, rank, world, lr, p_lr, starts=None,
-                 bn_groups=None):
-    """One main and one policy step of ``cfg`` on this rank's rows of
-    ``batch``; each phase from ``starts`` when given: (phase, start state,
-    metrics, end state) per phase."""
+def _mp_tiny_run(cfg, batch, lr, p_lr, starts=None, bn_groups=None):
+    """One main and one policy step of ``cfg`` on this rank's data shard
+    of ``batch``; each phase from ``starts`` when given: (phase, start
+    state, metrics, end state) per phase, sharded weights and their
+    optimizer state gathered."""
+    from adamml_tpu_torch.parallel import mesh
+
     model, _ = build_model(cfg, batch[1].device, bn_groups=bn_groups)
     state = _train_state(model, cfg)
-    inputs, target = _mp_rows(batch, rank, world)
+    shards, index = mesh.data_world()
+    inputs, target = _mp_rows(batch, index, shards)
     recs = []
     for i, phase in enumerate(("main", "policy")):
         if starts is not None:
@@ -2340,14 +2424,14 @@ def _mp_tiny_run(cfg, batch, rank, world, lr, p_lr, starts=None,
             model.load_state_dict(sd)
             state.main_opt.load_state_dict(opt_sd[0])
             state.policy_opt.load_state_dict(opt_sd[1])
-        start = ({k: v.clone() for k, v in model.state_dict().items()},
-                 [__import__("copy").deepcopy(o.state_dict())
+        start = (_mp_full(model),
+                 [__import__("copy").deepcopy(mesh.full_optimizer_state(o))
                   for o in (state.main_opt, state.policy_opt)], state.step)
         m = _make_step(model, phase)(state, inputs, target, lr, p_lr,
                                      COST if phase == "policy" else [0., 0.],
                                      seed=3)
         recs.append((phase, start, {k: v.clone() for k, v in m.items()},
-                     {k: v.clone() for k, v in model.state_dict().items()}))
+                     _mp_full(model)))
     return recs
 
 
@@ -2373,7 +2457,7 @@ def _mp_worker(argv) -> int:
         real_load = cur.load_checkpoint
 
         def write(*a):
-            print(f"CKPT_WRITE {rank} {os.path.basename(a[4])}", flush=True)
+            print(f"CKPT_WRITE {rank} {os.path.basename(a[3])}", flush=True)
             return real_write(*a)
 
         def validated(*a, **kw):
@@ -2394,10 +2478,10 @@ def _mp_worker(argv) -> int:
                                        "--dist-backend", "gloo", "--gpu",
                                        "0"])
 
+    if task in TP_TASKS:
+        return TP_TASKS[task](url, rank, world, args, dev, report)
     cfg = flagship_cfg()
-    cfg.runtime.dist_url, cfg.runtime.world_size = url, world
-    cfg.runtime.rank = rank
-    mesh.init_distributed(cfg, dev, backend="gloo")
+    _tp_join(cfg, url, rank, world, 1, dev)
     res = {}
     # the flagship at full width, bf16, 4 rows a rank of a global 8
     batches = _mp_batches(cfg, 8, MP_STEPS, 800, dev)
@@ -2455,14 +2539,14 @@ def _mp_worker(argv) -> int:
     mine = {}
     for sync in (False, True):
         tiny.runtime.sync_bn = sync
-        mine[sync] = _mp_tiny_run(tiny, batch, rank, world, LR, 1e-5)
+        mine[sync] = _mp_tiny_run(tiny, batch, LR, 1e-5)
     mesh.shutdown()
     if rank == 0:
         tiny.runtime.world_size = 1
         for sync in (False, True):
             tiny.runtime.sync_bn = sync
             theirs = _mp_tiny_run(
-                tiny, batch, 0, 1, LR, 1e-5, bn_groups=1 if sync else world,
+                tiny, batch, LR, 1e-5, bn_groups=1 if sync else world,
                 starts=[(r[1][0], r[1][1], r[1][2]) for r in mine[sync]])
             res[f"tiny_{'sync' if sync else 'per_replica'}_bn_vs_single"] = \
                 _mp_compare(mine[sync], theirs, 1e-4, 1e-5)
@@ -2471,6 +2555,222 @@ def _mp_worker(argv) -> int:
         for sync in (False, True) for r in mine[sync]]
     report(**res)
     return 0
+
+
+# tensor_parallel: the layers the flagship shards at --mesh_model 2 (31
+# classes: fc and classifier stay replicated), and (c)'s packing
+TP_SHARDED = ["policy_net.joint_fc1.weight", "policy_net.joint_fc2.weight",
+              "policy_net.lstm.hh.weight", "policy_net.lstm.ih.weight"]
+TP_CAPACITY, TP_GROUPS = 0.5, 5
+
+
+def _tp_join(cfg, url, rank, world, model, dev):
+    """Join the gloo group of a ``--mp-worker`` rank at --mesh_model
+    ``model``."""
+    from adamml_tpu_torch.parallel import mesh
+
+    cfg.runtime.dist_url, cfg.runtime.world_size = url, world
+    cfg.runtime.rank, cfg.runtime.mesh_model = rank, model
+    return mesh.init_distributed(cfg, dev, backend="gloo")
+
+
+class _Collectives:
+    """Counts, bytes and host ms of the collectives a step runs, by kind:
+    the Dense outputs' all-gathers over the model group, the input
+    gradients' all-reduces over it, and the data group's all-reduces
+    (gradients, metrics) and broadcasts (BN statistics); measurement only,
+    each call synchronized while it is timed."""
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from adamml_tpu_torch.parallel import mesh
+
+        self.saved = (mesh._all_gather, dist.all_reduce, dist.broadcast)
+        model_group = mesh.model_group()
+
+        def timed(kind, fn, t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a, **kw)
+            torch.cuda.synchronize()
+            self.log.append((kind, t.numel() * t.element_size(),
+                             (time.perf_counter() - t0) * 1e3))
+            return out
+
+        gather, reduce, bcast = self.saved
+        mesh._all_gather = lambda t, *a, **kw: timed(
+            "model_all_gather" if a[1] is model_group else "data_all_gather",
+            gather, t, *a, **kw)
+        dist.all_reduce = lambda t, *a, **kw: timed(
+            "model_all_reduce" if kw.get("group") is model_group
+            and model_group is not None else "data_all_reduce",
+            reduce, t, *a, **kw)
+        dist.broadcast = lambda t, *a, **kw: timed("broadcast", bcast, t,
+                                                   *a, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        from adamml_tpu_torch.parallel import mesh
+
+        mesh._all_gather, dist.all_reduce, dist.broadcast = self.saved
+
+    def summary(self) -> dict:
+        out = {}
+        for kind, nbytes, ms in self.log:
+            k = out.setdefault(kind, {"calls": 0, "bytes": 0, "ms": 0.0})
+            k["calls"] += 1
+            k["bytes"] += nbytes
+            k["ms"] += ms
+        return out
+
+
+def _tp_steps_worker(url, rank, world, args, dev, report) -> int:
+    """(a) and (b) of tensor_parallel, one rank at (1, 2): the flagship at
+    full width, bf16, all 8 clips on both ranks, MP_STEPS main then
+    MP_STEPS policy steps, per-replica BN (one data shard: the same moments
+    as --sync-bn without a host round trip a BN layer); then the tiny
+    float32 config's main and policy step, compared on rank 0 with the
+    single process."""
+    from adamml_tpu_torch.parallel import mesh
+
+    cfg = flagship_cfg()
+    cfg.runtime.sync_bn = False
+    _tp_join(cfg, url, rank, world, 2, dev)
+    model, _ = build_model(cfg, dev)
+    sharded = sorted(n for n, p in model.named_parameters()
+                     if mesh.param_shard(p) is not None)
+    state = _train_state(model, cfg)
+    batches = _mp_batches(cfg, 8, MP_STEPS, 1000, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    digests, ms, collectives, trace = {}, {}, {}, None
+    zero_counts()
+    for phase in ("main", "policy"):
+        step = _make_step(model, phase)
+        digests[phase], ms[phase] = [], []
+        cw = COST if phase == "policy" else [0., 0.]
+        for i, (inputs, target) in enumerate(batches):
+            if i == 0:  # the warm-up step: its collectives counted, timed
+                with _Collectives() as col:
+                    m = step(state, inputs, target, LR, P_LR, cw, seed=i)
+                collectives[phase] = col.summary()
+            elif phase == "main" and i == len(batches) - 1:
+                held = {}
+                names = _device_kernels(lambda: held.update(m=step(
+                    state, inputs, target, LR, P_LR, cw, seed=i)))
+                m = held["m"]
+                trace = {"forward": sum(FWD_NAME in n and BWD_NAME not in n
+                                        for n in names),
+                         "backward": sum(BWD_NAME in n for n in names),
+                         "kernels": len(names)}
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, inputs, target, LR, P_LR, cw, seed=i)
+                torch.cuda.synchronize()
+                ms[phase].append((time.perf_counter() - t0) * 1e3)
+            digests[phase].append(_mp_digest(
+                list(_mp_full(model).values()) + [m[k] for k in sorted(m)]))
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model, state, step
+    torch.cuda.empty_cache()
+    # (b) the tiny float32 config, cuDNN deterministic, real Gumbel noise
+    torch.backends.cudnn.deterministic = True
+    tiny = flagship_cfg(tiny=True)
+    tiny.runtime.world_size, tiny.runtime.mesh_model = world, 2
+    batch = _mp_batches(tiny, 8, 1, 1100, dev)[0]
+    mine = _mp_tiny_run(tiny, batch, LR, 1e-5)
+    mesh.shutdown()
+    res = dict(sharded=sharded, digests=digests, ms_per_step=ms,
+               collectives=collectives, main_step_trace=trace,
+               launches=launches,
+               max_memory_allocated_bytes=peak,
+               tiny_digests=[_mp_digest(list(r[3].values())
+                                        + [r[2][k] for k in sorted(r[2])])
+                             for r in mine])
+    if rank == 0:
+        tiny.runtime.world_size, tiny.runtime.mesh_model = 1, 1
+        theirs = _mp_tiny_run(tiny, batch, LR, 1e-5, bn_groups=1, starts=[
+            (r[1][0], r[1][1], r[1][2]) for r in mine])
+        res["tiny_vs_single"] = _mp_compare(mine, theirs, 1e-4, 1e-5)
+    report(**res)
+    return 0
+
+
+def _tp_plan(dec: np.ndarray, rows: int, groups: int, capacity: float):
+    """(run set, dropped selections) of packing ``dec`` (M, rows) in
+    ``groups`` blocks (one when they do not divide the rows): the JAX
+    package's plan (adamml_tpu/models/joint_net.py:98-121), counted here."""
+    groups = groups if groups > 1 and rows % groups == 0 else 1
+    bl = rows // groups
+    cap = max(1, int(round(capacity * bl)))
+    run, dropped = [], []
+    for m in range(dec.shape[0]):
+        ids, drop = [], 0
+        for g in range(groups):
+            blk = dec[m, g * bl:(g + 1) * bl]
+            ids += list(g * bl + np.argsort(-blk, kind="stable")[:cap])
+            drop += max(0, int(blk.sum()) - cap)
+        run.append(sorted(ids))
+        dropped.append(drop)
+    return run, dropped
+
+
+def _tp_inputs(cfg, dev):
+    """(c)'s global batch: 8 clips folded to 40 rows a modality, and forced
+    decisions (each row on with probability 0.6, seeded)."""
+    s = cfg.model.num_segments
+    x = example_inputs(cfg, batch=8, seed=1200, device=dev)
+    m_x = [a.reshape((8 * s,) + tuple(a.shape[2:])) for a in x]
+    dec = (np.random.RandomState(1201).rand(2, 8 * s) < 0.6).astype(
+        np.float32)
+    return m_x, dec
+
+
+def _tp_packed_worker(url, rank, world, args, dev, report) -> int:
+    """(c) of tensor_parallel, one rank at (2, 1): the flagship's main net
+    at eval capacity 0.5 in 5 blocks of 8 of the 40 global rows (blocks 2
+    spans the ranks), forced decisions, this rank's 20 rows; the gathered
+    logits, the epilogue's row counts, and capacity_dropped on the gathered
+    decisions."""
+    from adamml_tpu_torch.parallel import mesh
+    from adamml_tpu_torch.train.engine import capacity_dropped
+
+    cfg = flagship_cfg()
+    cfg.model.eval_capacity, cfg.model.capacity_groups = (TP_CAPACITY,
+                                                          TP_GROUPS)
+    _tp_join(cfg, url, rank, world, 1, dev)
+    model, _ = build_model(cfg, dev)
+    m_x, dec = _tp_inputs(cfg, dev)
+    shards, index = mesh.data_world()
+    n = m_x[0].shape[0] // shards
+    mine = [a[index * n:(index + 1) * n] for a in m_x]
+    mdec = torch.from_numpy(dec[:, index * n:(index + 1) * n]).to(dev)
+    with torch.no_grad():
+        zero_counts()
+        rows, logits = _packed_rows(lambda: model.main_net(
+            mine, mdec, seq_groups=cfg.model.num_segments))
+        launches = all_counts()
+    every = mesh.gather_rows(mdec, dim=1).numpy()           # (M, 40)
+    s = cfg.model.num_segments
+    dropped = capacity_dropped(
+        [every.T.reshape(-1, s, 2)], 2, TP_CAPACITY, TP_GROUPS)
+    out = mesh.gather_rows(logits).float()
+    mesh.shutdown()
+    report(logits=out.tolist(), rows=rows, launches=launches,
+           dropped=dropped.tolist(),
+           decisions_equal=bool(np.array_equal(every, dec)))
+    return 0
+
+
+TP_TASKS = {"tp_steps": _tp_steps_worker, "tp_packed": _tp_packed_worker}
 
 
 def _mp_spawn(task, world, args) -> list:
@@ -2756,6 +3056,170 @@ def multi_process_phase(dev, card: str) -> dict:
     return out
 
 
+def _tp_a_b(card, world1) -> dict:
+    """(a) the flagship at (1, 2): ranks bit-identical after every step,
+    the sharded set, each rank's main-step epilogue kernels, ms per step
+    against world size 1 (``world1``: multi_process (a)'s steps without a
+    group, 8 clips, per-replica BN), the collectives' bytes and ms, peak
+    memory per rank; (b) the tiny config against the single process."""
+    t0 = time.perf_counter()
+    a, b = _mp_results(_mp_spawn("tp_steps", 2, {"device": "cuda:0"}))
+    seconds = time.perf_counter() - t0
+    check(a["digests"] == b["digests"],
+          f"tensor_parallel (1, 2): the ranks' gathered states differ: "
+          f"{a['digests']} {b['digests']}")
+    for r in (a, b):
+        check(r["sharded"] == TP_SHARDED, f"tensor_parallel rank "
+              f"{r['rank']}: sharded {r['sharded']}, expected {TP_SHARDED}")
+        tr = r["main_step_trace"]
+        check(tr["forward"] == 3 and tr["backward"] == 3,
+              f"tensor_parallel rank {r['rank']}: main step trace {tr}, "
+              f"expected 3 forward and 3 backward epilogue kernels")
+        # host counts over the rank's steps: 3 forward a step, 3 backward
+        # a main-phase step
+        got = (r["launches"][tp.KERNEL], r["launches"][tp.KERNEL_BWD])
+        check(got == (6 * MP_STEPS, 3 * MP_STEPS),
+              f"tensor_parallel rank {r['rank']}: epilogue launches {got}, "
+              f"expected {(6 * MP_STEPS, 3 * MP_STEPS)}")
+    check(a["tiny_digests"] == b["tiny_digests"],
+          "tensor_parallel tiny: the ranks differ")
+    _mp_check_compare("tensor_parallel tiny (1, 2)", a["tiny_vs_single"])
+    w2 = [t for r in (a, b) for ph in ("main", "policy")
+          for t in r["ms_per_step"][ph]]
+    out = dict(sharded=a["sharded"], steps_bit_identical=2 * MP_STEPS,
+               main_step_trace=[r["main_step_trace"] for r in (a, b)],
+               launches=[r["launches"] for r in (a, b)],
+               median_ms_per_step_tp=float(np.median(w2)),
+               median_ms_per_step_world1=_median_after_first(world1),
+               ms_per_step_tp=[r["ms_per_step"] for r in (a, b)],
+               collectives_first_step=[r["collectives"] for r in (a, b)],
+               max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
+                                           for r in (a, b)],
+               tiny_vs_single=a["tiny_vs_single"], seconds=seconds)
+    emit("tensor_parallel", check="flagship_1x2", card=card, **out,
+         timing="host clock around each step ending in "
+         "torch.cuda.synchronize(); the first step of each phase (its "
+         "collectives synchronized and timed one by one) and the traced "
+         "main step left out; world 1 is multi_process (a)'s single "
+         "process on the same 8 clips; two processes share the card over "
+         "gloo, each running every clip")
+    return out
+
+
+def _tp_c(card) -> dict:
+    """(c) A.21 at (2, 1): packed eval with blocks that span the ranks,
+    against the single process at G = 5 in this process."""
+    cfg = flagship_cfg()
+    cfg.model.eval_capacity, cfg.model.capacity_groups = (TP_CAPACITY,
+                                                          TP_GROUPS)
+    t0 = time.perf_counter()
+    res = _mp_results(_mp_spawn("tp_packed", 2, {"device": "cuda:0"}))
+    seconds = time.perf_counter() - t0
+    model, _ = build_model(cfg)
+    m_x, dec = _tp_inputs(cfg, torch.device("cuda", 0))
+    with torch.no_grad():
+        want = model.main_net(m_x, torch.from_numpy(dec).cuda(),
+                              seq_groups=cfg.model.num_segments).float()
+    rows = dec.shape[1]
+    run, host_dropped = _tp_plan(dec, rows, TP_GROUPS, TP_CAPACITY)
+    got = torch.tensor(res[0]["logits"], device=want.device)
+    check(res[0]["logits"] == res[1]["logits"],
+          "tensor_parallel (2, 1): the ranks gathered other logits")
+    # a rank runs its backbones on its own rows of the run set, so cuDNN
+    # sees other batch sizes than the single process and may sum in
+    # another order: each modality's bf16 logit can move by an ulp, and
+    # the float32 late-fusion sum of the two can add them
+    ulp = float(bf16_ulp(want.abs().max()))
+    diff = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and diff <= 2 * ulp,
+          f"tensor_parallel (2, 1): packed logits differ from the single "
+          f"process at G = {TP_GROUPS} by {diff}, beyond 2 bf16 ulps of the "
+          f"largest logit ({2 * ulp})")
+    half = rows // 2
+    for r in res:
+        lo, hi = r["rank"] * half, (r["rank"] + 1) * half
+        n_rgb = sum(lo <= i < hi for i in run[0])
+        check(r["decisions_equal"], f"rank {r['rank']}: gathered decisions")
+        check(r["rows"] == ([n_rgb] * 3 if n_rgb else []),
+              f"tensor_parallel (2, 1) rank {r['rank']}: epilogue launches "
+              f"on rows {r['rows']}, the plan runs {n_rgb} rgb rows here")
+        check(r["dropped"] == host_dropped,
+              f"tensor_parallel (2, 1) rank {r['rank']}: capacity_dropped "
+              f"{r['dropped']}, counted here {host_dropped}")
+    out = dict(rows=rows, groups=TP_GROUPS, capacity=TP_CAPACITY,
+               run_rows=[len(x) for x in run],
+               rows_launched=[r["rows"] for r in res],
+               launches=[r["launches"] for r in res],
+               capacity_dropped=res[0]["dropped"], host_count=host_dropped,
+               max_abs_logit=float(want.abs().max()), max_abs_diff=diff,
+               diff_in_bf16_ulps_of_largest=diff / ulp, seconds=seconds)
+    emit("tensor_parallel", check="packed_eval_2x1", card=card, **out)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_d(card) -> dict:
+    """(d) train_adamml at --world-size 2 --mesh_model 2 on 16 synthetic
+    videos: equal Val lines, checkpoints from rank 0 only and unsharded;
+    then -e --pretrained on that checkpoint at (1, 2) and at world size 1
+    in this process give the same Val line (float32 there, so that no
+    Gumbel decision sits within a bf16 rounding of its tie)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, "tp")
+        t0 = time.perf_counter()
+        outs = _mp_spawn("cli", 2, {"cli": "train_adamml", "device": "cuda:0",
+                                    "argv": CLI_ADAMML + [
+                                        "--mesh_model", "2", "--logdir",
+                                        logdir]})
+        seconds = time.perf_counter() - t0
+        val = [_mp_val_lines(o, r) for r, o in enumerate(outs)]
+        check(bool(val[0]) and val[0] == val[1],
+              f"train_adamml (1, 2): Val lines differ: {val}")
+        writes = [_mp_lines(o, "CKPT_WRITE") for o in outs]
+        check(bool(writes[0]) and not writes[1],
+              f"train_adamml (1, 2): checkpoint writes {writes}")
+        folder = os.path.join(logdir, os.listdir(logdir)[0])
+        ckpt = os.path.join(folder, "checkpoint")
+        saved = torch.load(os.path.join(ckpt, "state.pt"),
+                           map_location="cpu", weights_only=True)["model"]
+        full, _ = build_model(flagship_cfg())
+        shapes = {k: tuple(v.shape) for k, v in full.state_dict().items()}
+        del full
+        check({k: tuple(v.shape) for k, v in saved.items()} == shapes,
+              "train_adamml (1, 2): the checkpoint is not the full model")
+        ev = CLI_ADAMML + ["-e", "--pretrained", ckpt, "--compute_dtype",
+                           "float32"]
+        outs = _mp_spawn("cli", 2, {"cli": "train_adamml", "device": "cuda:0",
+                                    "argv": ev + ["--mesh_model", "2",
+                                                  "--logdir",
+                                                  os.path.join(tmp, "e2")]})
+        e_tp = [_mp_val_lines(o, r) for r, o in enumerate(outs)]
+        run = _run_cli(train_adamml.main, ev, os.path.join(tmp, "e1"))
+        e_one = _mp_val_lines("\n".join(msg for _, msg in run["probe"].lines),
+                              0)
+        check(bool(e_one) and e_tp[0] == e_tp[1] == e_one,
+              f"-e --pretrained: Val at (1, 2) {e_tp}, at world size 1 "
+              f"{e_one}")
+        out = dict(seconds=seconds, val_lines=val[0], checkpoint_writes=writes,
+                   evaluate_val_line=e_one, sharded_in_checkpoint={
+                       k: list(saved[k].shape) for k in TP_SHARDED})
+    emit("tensor_parallel", check="cli_train_adamml_1x2", card=card, **out)
+    return out
+
+
+def tensor_parallel_phase(card: str, world1) -> dict:
+    """Tensor parallelism (--mesh_model, parallel/mesh.py) and packing
+    across ranks on the one card, every rank a process over gloo: (a) and
+    (b) at (1, 2), (c) at (2, 1), (d) the CLI at (1, 2)."""
+    t0 = time.perf_counter()
+    out = {"steps": _tp_a_b(card, world1), "packed": _tp_c(card),
+           "cli": _tp_d(card)}
+    emit("tensor_parallel", check="phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2806,6 +3270,8 @@ def main() -> int:
     cres = cli_phase(dev, smi)
     rres = real_data_phase(dev, smi)
     pres = multi_process_phase(dev, smi)
+    tpres = tensor_parallel_phase(
+        smi, pres["nccl"]["per_replica_bn"]["ms_per_step_no_group"])
 
     def bound_by(res):
         return "bytes" if res["bytes_s"] >= res["ops_s"] else "operations"
@@ -2850,6 +3316,12 @@ def main() -> int:
             "multi_process_gloo_world2_main_step_trace_per_rank": [
                 t["forward"] for t in
                 pres["gloo"]["per_replica_bn"]["main_step_trace"]],
+            "tensor_parallel_1x2_main_step_trace_per_rank": [
+                t["forward"] for t in tpres["steps"]["main_step_trace"]],
+            "tensor_parallel_1x2_steps_per_rank": [
+                c[tp.KERNEL] for c in tpres["steps"]["launches"]],
+            "tensor_parallel_2x1_packed_eval_per_rank": [
+                c[tp.KERNEL] for c in tpres["packed"]["launches"]],
             **{f"eval_capacity_{k}": v[tp.KERNEL]
                for k, v in eres["launches"].items()}},
         "packed_rows": eres["kernel"],
@@ -2892,7 +3364,11 @@ def main() -> int:
                 pres["nccl"]["launches"][tp.KERNEL_BWD],
             "multi_process_gloo_world2_main_step_trace_per_rank": [
                 t["backward"] for t in
-                pres["gloo"]["per_replica_bn"]["main_step_trace"]]},
+                pres["gloo"]["per_replica_bn"]["main_step_trace"]],
+            "tensor_parallel_1x2_main_step_trace_per_rank": [
+                t["backward"] for t in tpres["steps"]["main_step_trace"]],
+            "tensor_parallel_1x2_steps_per_rank": [
+                c[tp.KERNEL_BWD] for c in tpres["steps"]["launches"]]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "

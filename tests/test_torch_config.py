@@ -99,18 +99,22 @@ def test_validate_args_rejects_the_same_argv(argv):
 # README.md's flag table
 REJECTED = [
     (["--mesh_data", "2"], "--mesh_data", "world size"),
-    (["--mesh_model", "2"], "--mesh_model", "A.20"),
+    (["--mesh_model", "2"], "--mesh_model", "world size"),
     (["--world-size", "2", "--mesh_data", "4"], "--mesh_data", "world size"),
     (["--gpu", "0,1"], "--gpu", "--multiprocessing-distributed"),
+    (["--world-size", "2", "--mesh_model", "3"], "--mesh_model",
+     "world size"),
+    (["--mesh_data", "2", "--mesh_model", "2", "--world-size=2"],
+     "--mesh_data", "world size over --mesh_model"),
 ]
 
 
 @pytest.mark.parametrize("argv,flag,why", REJECTED,
                          ids=[f"{f}-{a[-1]}" for a, f, _ in REJECTED])
 def test_rejected_flags_name_themselves(argv, flag, why):
-    """--mesh_data other than -1 or the world size, --mesh_model above 1
-    (tensor parallelism, ROADMAP A.20) and two devices without
-    --multiprocessing-distributed."""
+    """--mesh_data other than -1 or the world size over --mesh_model,
+    --mesh_model that does not divide the world size (2 at world size 1,
+    3 at 2) and two devices without --multiprocessing-distributed."""
     parser = tconfig.arg_parser()
     args = parser.parse_args(["--dataset", "synthetic"] + argv)
     with pytest.raises(ValueError, match=flag) as err:
@@ -141,6 +145,8 @@ PORTED = [
                 c.runtime.sync_bn) == ("tcp://127.0.0.1:1", 2, 1, True)),
     (["--hostfile", "/h", "--mesh_data", "3"],
      lambda c: c.runtime.hostfile == "/h" and c.runtime.mesh_data == 3),
+    (["--mesh_model", "2", "--world-size", "2"],
+     lambda c: (c.runtime.mesh_model, c.runtime.world_size) == (2, 2)),
 ]
 
 

@@ -124,6 +124,61 @@ def test_reference_bwd_matches_jax(rs_, f):
                                        atol=tol, err_msg=f"{name} {what}")
 
 
+# the 'model' channel block of tests/test_tpool_sharded.py's
+# test_2d_mesh_batch_and_channel_shard_local: block m of M over C = 256
+# (C / M = 128 or 64, multiples of 8); (M, m, R, S, F)
+BLOCK_CASES = [(2, 0, 1, 1, 4), (2, 1, 2, 2, 3), (4, 2, 1, 3, 8)]
+BLOCK_IDS = [f"M{c[0]}m{c[1]}-R{c[2]}S{c[3]}-F{c[4]}" for c in BLOCK_CASES]
+
+
+def _block_args(msize, m, r, s, f, seed):
+    rs = np.random.RandomState(seed)
+    full = _args(rs, _RS_N[(r, s)], f, 4, 4, 256, r, s)
+    cb = 256 // msize
+    lo, hi = m * cb, (m + 1) * cb
+    block = [np.ascontiguousarray(v[..., lo:hi]) for v in full]
+    return rs, full, block, (lo, hi)
+
+
+@pytest.mark.parametrize("msize,m,r,s,f", BLOCK_CASES, ids=BLOCK_IDS)
+def test_reference_impl_on_a_channel_block(msize, m, r, s, f):
+    """The plain forward on channels [m C / M, (m + 1) C / M) with the
+    affine's matching slice is that block of the full-C result, bit for
+    bit (no channel reads another); and the Pallas kernels (interpret
+    mode) on the same block agree within 1e-6, as on full C."""
+    _, full, block, (lo, hi) = _block_args(msize, m, r, s, f, 40 + m)
+    got = ttp.reference_impl(*(t(v) for v in block))
+    whole = ttp.reference_impl(*(t(v) for v in full))
+    assert torch.equal(got, whole[..., lo:hi].contiguous())
+    jargs = [jnp.asarray(v) for v in block]
+    for name, want in (
+            ("_pallas_fwd", jtp._pallas_fwd(*jargs, interpret=True)),
+            ("_pallas_fwd_hwnfc", jtp._pallas_fwd_hwnfc(*jargs,
+                                                        interpret=True))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("msize,m,r,s,f", BLOCK_CASES, ids=BLOCK_IDS)
+def test_reference_bwd_on_a_channel_block(msize, m, r, s, f):
+    """The plain backward on a channel block (the cotangent's block too):
+    dy, dident, da and db are those blocks of the full-C backward, bit for
+    bit; against the Pallas backward kernels (interpret mode) on the same
+    block with test_reference_bwd_matches_jax's tolerances."""
+    rs, full, block, (lo, hi) = _block_args(msize, m, r, s, f, 50 + m)
+    ct = _ct(rs, full[0])
+    cblock = np.ascontiguousarray(ct[..., lo:hi])
+    got = ttp.reference_bwd(*(t(v) for v in [*block, cblock]))
+    whole = ttp.reference_bwd(*(t(v) for v in [*full, ct]))
+    for g, w, what in zip(got, whole, ("dy", "dident", "da", "db")):
+        assert torch.equal(g, w[..., lo:hi].contiguous()), what
+    for name, want in _jax_bwds(*block, cblock)[1:]:
+        for g, w, what in zip(got, want, ("dy", "dident", "da", "db")):
+            tol = 1e-6 if what in ("dy", "dident") else 1e-5
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                       atol=tol, err_msg=f"{name} {what}")
+
+
 def test_reference_bwd_routes_ties_to_first_max():
     """All frames equal (tests/test_pallas.py:171-191): each window's
     cotangent goes to its first frame, as every JAX backward does."""

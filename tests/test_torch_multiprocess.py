@@ -39,7 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 240
 
 # the children's shared code: argv = task, url, rank, world, out dir, args
-_WORKER = r'''
+# (tests/test_torch_tensor_parallel.py adds its tasks to this header)
+HEADER = r'''
 import copy, hashlib, json, os, sys
 import numpy as np
 import torch
@@ -64,6 +65,7 @@ if dev.type == "cuda":
 def join(cfg):
     cfg.runtime.dist_url, cfg.runtime.world_size = url, world
     cfg.runtime.rank = rank
+    cfg.runtime.mesh_model = args.get("mesh_model", 1)
     return mesh.init_distributed(cfg, dev, backend="gloo")
 
 
@@ -99,6 +101,13 @@ def unimodal_cfg(logdir):
     return cfg
 
 
+def full_tensors(model):
+    """The model's state with sharded weights gathered (every rank calls
+    it; the state itself without a group)."""
+    return {k: v.clone() for k, v in mesh.full_state_dict(model).items()}
+'''
+
+_WORKER = HEADER + r'''
 if task == "steps":
     from adamml_tpu_torch.models import model_builder as mb
     from adamml_tpu_torch.train.optim import build_optimizer
@@ -131,9 +140,10 @@ if task == "steps":
                 model.load_state_dict(sd)
                 state.main_opt.load_state_dict(main_sd)
                 state.policy_opt.load_state_dict(policy_sd)
-            start = (copy.deepcopy(model.state_dict()),
-                     copy.deepcopy(state.main_opt.state_dict()),
-                     copy.deepcopy(state.policy_opt.state_dict()),
+            start = (full_tensors(model),
+                     copy.deepcopy(mesh.full_optimizer_state(state.main_opt)),
+                     copy.deepcopy(mesh.full_optimizer_state(
+                         state.policy_opt)),
                      state.step)
             flags = (StageFlags.main_phase() if phase == "main"
                      else StageFlags.policy_phase())
@@ -142,14 +152,15 @@ if task == "steps":
                 clip_gradient=None)
             m = step(state, xs, ts, args["lr"], args["p_lr"], cw, seed=3)
             recs.append((start, {k: v.clone() for k, v in m.items()},
-                         {k: v.clone() for k, v in
-                          model.state_dict().items()}))
+                         full_tensors(model)))
         return recs
 
-    n = batch // world
+    # the rows of this rank's data index (model peers share them)
+    shards, d = mesh.data_world()
+    n = batch // shards
     model, _ = mb.build_model(cfg, dev)
-    mine = run(model, [a[rank * n:(rank + 1) * n] for a in x],
-               target[rank * n:(rank + 1) * n])
+    mine = run(model, [a[d * n:(d + 1) * n] for a in x],
+               target[d * n:(d + 1) * n])
     synced = all(getattr(m_, "sync", False) for m_ in model.modules()
                  if hasattr(m_, "running_mean"))
     mesh.shutdown()
@@ -160,8 +171,9 @@ if task == "steps":
         # the single process on the global batch, each phase from the
         # 2-rank run's start of that phase, compared here (the tiny
         # flagship's state is 120 MB)
+        cfg.runtime.mesh_model = 1
         ref, _ = mb.build_model(cfg, dev,
-                                bn_groups=1 if args["sync_bn"] else world)
+                                bn_groups=1 if args["sync_bn"] else shards)
         theirs = run(ref, x, target, starts=[r[0] for r in mine])
         rtol, p_lr = args["rtol"], args["p_lr"]
         cmp = []
@@ -252,31 +264,33 @@ elif task == "dryrun":
     moved = sum(not torch.equal(a, p) for a, p in zip(
         before, trainer.model.policy_net.parameters()))
     m3 = trainer.step_policy(state, inputs, target, lr, lr, cw, seed=0)
+    state = digest(full_tensors(trainer.model).values())
     mesh.shutdown()
     report(cls=cls, moved=moved, sel=[m2["selection"].tolist(),
                                       m3["selection"].tolist()],
-           state=digest(trainer.model.state_dict().values()))
+           state=state)
 
 else:
     raise SystemExit(f"unknown task {task}")
 '''
 
 
-def _launch(tmp_path, task, world=2, **args):
-    """Run ``task`` on ``world`` ranks; returns each rank's RESULT dict.
-    Any rank that fails or outlives TIMEOUT_S fails the test; every child
-    is killed on the way out."""
+def _launch(tmp_path, task, world=2, worker=_WORKER, timeout_s=TIMEOUT_S,
+            **args):
+    """Run ``task`` of ``worker`` on ``world`` ranks; returns each rank's
+    RESULT dict. Any rank that fails or outlives ``timeout_s`` fails the
+    test; every child is killed on the way out."""
     url = free_local_url()
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     # stdout apart from stderr: the C++ side's warnings on stderr can land
     # in the middle of a line printed to a shared pipe
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, task, url, str(r), str(world),
+        [sys.executable, "-c", worker, task, url, str(r), str(world),
          str(tmp_path), json.dumps(args)], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     try:
-        got = [p.communicate(timeout=TIMEOUT_S) for p in procs]
+        got = [p.communicate(timeout=timeout_s) for p in procs]
     finally:
         for p in procs:
             p.kill()

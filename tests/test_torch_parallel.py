@@ -4,6 +4,9 @@ reference of an R-rank run), the tiny flagship main-phase step with
 per-replica BN against the JAX step on a 2-way data mesh, the loader's
 shards, the builder's resolvers at world size 2, and the helpers of
 parallel/mesh.py in a process group of one (the identity, bit for bit).
+Then eval-capacity packing across ranks: two gloo ranks whose packing
+blocks span them, against the single process and the JAX package's row
+set (tests/test_capacity_sharded.py).
 
 The multi-process runs themselves: tests/test_torch_multiprocess.py.
 """
@@ -21,7 +24,9 @@ from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import make_adamml_train_step
 from adamml_tpu_torch.train.train_state import StageFlags, TrainState
 
+from test_capacity_sharded import _executed_decisions
 from test_torch_data import _loaders
+from test_torch_multiprocess import HEADER, _launch
 from test_torch_train import (check_bn_statistics, check_freezes,
                               check_gradients, check_grouped_batchnorm,
                               check_metrics, check_parameters,
@@ -108,8 +113,9 @@ def _world2(sync_bn=False, capacity_groups=None):
 @pytest.mark.parametrize("groups,want", [(None, 2), (2, 2), (4, 4)])
 def test_capacity_groups_at_world_size_2(groups, want):
     """One packing group per rank by default (the JAX package's one per
-    data shard, mesh_data 2); an explicit count that is a multiple of the
-    world size, G / W of them on each rank."""
+    data shard, mesh_data 2); an explicit count as given. The model takes
+    the global count and the two data shards (a multiple of them packs
+    G / 2 blocks on each rank)."""
     cfg = _world2(capacity_groups=groups)
     jcfg = jconfig.ExperimentConfig()
     jcfg.runtime.mesh_data, jcfg.model.capacity_groups = 2, groups
@@ -117,14 +123,115 @@ def test_capacity_groups_at_world_size_2(groups, want):
     assert jbuilder._capacity_groups(jcfg) == want
     cfg.model.eval_capacity = 0.5
     model, _ = tbuilder.build_model(cfg, device="cpu")
-    assert model.main_net.capacity_groups == want // 2
+    assert (model.main_net.capacity_groups,
+            model.main_net.data_shards) == (want, 2)
 
 
-def test_capacity_groups_across_ranks_are_refused():
-    """A group count that is not a multiple of the world size would pack
-    across ranks, which is not ported: a ValueError naming ROADMAP A.21."""
-    with pytest.raises(ValueError, match="A.21"):
-        tbuilder._capacity_groups(_world2(capacity_groups=3))
+@pytest.mark.parametrize("groups", [3, 1, 5])
+def test_capacity_groups_across_ranks_at_world_size_2(groups):
+    """A count that is no multiple of the world size is the JAX package's
+    count too (its blocks span data shards), where the port refused it
+    before packing across ranks was ported."""
+    jcfg = jconfig.ExperimentConfig()
+    jcfg.runtime.mesh_data, jcfg.model.capacity_groups = 2, groups
+    assert tbuilder._capacity_groups(_world2(capacity_groups=groups)) == \
+        jbuilder._capacity_groups(jcfg) == groups
+
+
+# the A.21 ranks: 10 global rows, 5 a rank, eval capacity 0.5
+PACK_DEC = [1., 1., 1., 0., 1., 1., 0., 1., 1., 1.]
+PACK_GROUPS = [1, 2, 4, 5, 10]
+
+_PACKED = HEADER + r'''
+from adamml_tpu_torch.models.joint_net import JointMainNet
+from adamml_tpu_torch.models.model_builder import init_model
+from adamml_tpu_torch.train.engine import capacity_dropped
+
+join(flagship_cfg(tiny=True))
+dec = torch.tensor(args["dec"])
+rows = dec.numel()
+x = torch.from_numpy(np.random.RandomState(5).randn(
+    rows, 2, 32, 32, 3).astype(np.float32))
+
+
+def packed(groups, shards, index):
+    """(logits, global rows the backbone ran) of this rank's rows."""
+    net = init_model(JointMainNet(("rgb",), depth=18, num_classes=5,
+                                  dropout=0.0, eval_capacity=0.5,
+                                  capacity_groups=groups,
+                                  data_shards=shards), 0)
+    n = rows // shards
+    mine = x[index * n:(index + 1) * n]
+    ran, real = [], net.net_rgb.forward
+    net.net_rgb.forward = lambda xx, *a, **k: ran.append(xx) or real(
+        xx, *a, **k)
+    with torch.no_grad():
+        logits = net([mine], dec[None, index * n:(index + 1) * n])
+    got = [index * n + next(i for i in range(n) if torch.equal(r, mine[i]))
+           for b in ran for r in b]
+    return logits, got
+
+
+shards, index = mesh.data_world()
+res = {}
+for g in args["groups"]:
+    logits, ran = packed(g, shards, index)
+    every = mesh.gather_rows(dec[index * 5:(index + 1) * 5])
+    res[g] = {"logits": mesh.gather_rows(logits).tolist(), "ran": ran,
+              "dropped": capacity_dropped(
+                  [every.numpy().reshape(rows, 1, 1)], 1, 0.5, g).tolist()}
+mesh.shutdown()
+if rank == 0:
+    for g in args["groups"]:
+        logits, ran = packed(g, 1, 0)
+        res[g]["single"] = {"logits": logits.tolist(), "ran": ran,
+                            "dropped": capacity_dropped(
+                                [dec.numpy().reshape(rows, 1, 1)], 1, 0.5,
+                                g).tolist()}
+report(**{str(g): v for g, v in res.items()})
+'''
+
+
+@pytest.fixture(scope="module")
+def packed_ranks(tmp_path_factory):
+    results, _ = _launch(tmp_path_factory.mktemp("packed"), "packed",
+                         worker=_PACKED, dec=PACK_DEC, groups=PACK_GROUPS)
+    return results
+
+
+@pytest.mark.parametrize("groups", PACK_GROUPS)
+def test_packing_across_ranks_matches_the_single_process(packed_ranks,
+                                                         groups):
+    """Two gloo ranks at (2, 1), 5 of the 10 global rows each, eval
+    capacity 0.5 in G blocks: 1, 5 (blocks that span the ranks: the
+    gathered decisions give every rank the global plan), 2, 10 (blocks
+    within ranks: each packs its own rows) and 4, a multiple of the ranks
+    that does not divide the 10 rows, so the JAX package packs one global
+    block (the port packed one block a rank before). Both ranks gather the same
+    logits, bit for bit; they equal the single process's at the same G
+    within 1e-5 (a row's eval logits depend on that row alone, but a
+    float32 convolution over another number of rows can sum in another
+    order: 2.6e-6 relative at G = 1); the rows whose backbone ran are the
+    global plan's, each on its own rank; the rows with logits are the executed
+    set of tests/test_capacity_sharded.py; capacity_dropped is the single
+    process's and the selections beyond cap."""
+    a, b = (r[str(groups)] for r in packed_ranks)
+    single = a["single"]
+    got = np.asarray(a["logits"], np.float32)
+    assert a["logits"] == b["logits"]
+    np.testing.assert_allclose(got, single["logits"], rtol=1e-5, atol=1e-5)
+    dec = np.asarray([PACK_DEC], np.float32)
+    g = groups if 10 % groups == 0 else 1
+    exe = _executed_decisions(dec, 0.5, g)
+    np.testing.assert_array_equal(np.flatnonzero(np.abs(got).sum(1)),
+                                  np.flatnonzero(exe[0]))
+    ran = sorted(a["ran"] + b["ran"])
+    assert ran == sorted(single["ran"])
+    assert all(r < 5 for r in a["ran"]) and all(r >= 5 for r in b["ran"])
+    bl = 10 // g
+    assert len(ran) == g * max(1, int(round(0.5 * bl)))
+    assert a["dropped"] == b["dropped"] == single["dropped"] == [
+        int(dec.sum() - exe.sum())]
 
 
 @pytest.mark.parametrize("sync_bn", [False, True])
