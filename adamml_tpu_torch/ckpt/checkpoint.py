@@ -18,8 +18,11 @@ and its optimizer state over its model group before rank 0 writes, and on
 load every rank reads the full tensors and keeps its rows, so one written
 at any M resumes at any other. The meta carries
 ``optim_layout: "torch"``; ``check_layout`` refuses any other tag, so an
-orbax checkpoint of the JAX package (tag "fused" or "per_tensor") is named
-as such instead of failing inside ``torch.load``.
+orbax checkpoint of the JAX package (tag "fused" or "per_tensor", or no tag
+beside orbax's own files) is named as such instead of failing inside
+``torch.load``. This package does not read orbax: ``orbax_to_torch.py`` at
+the repository's root, run where jax and orbax are installed, converts such
+a checkpoint into one of this layout (``write_imported_checkpoint``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import os
 import shutil
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,6 +43,8 @@ from ..train.train_state import TrainState
 _META = "meta.json"
 _STATE = "state.pt"
 LAYOUT = "torch"
+# files orbax writes into a checkpoint directory (one is enough)
+_ORBAX_FILES = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
 
 
 def save_checkpoint(model: nn.Module, state: TrainState, meta: dict,
@@ -85,18 +91,61 @@ def peek_meta(path: str) -> dict:
         return json.load(f)
 
 
+def _is_orbax(meta: dict, path: str) -> bool:
+    return (meta.get("optim_layout") in ("fused", "per_tensor")
+            or any(os.path.exists(os.path.join(path, f))
+                   for f in _ORBAX_FILES))
+
+
 def check_layout(meta: dict, path: str) -> None:
     saved = meta.get("optim_layout")
     if saved != LAYOUT:
-        origin = ("an orbax checkpoint of the JAX package (adamml_tpu); "
-                  "reading it needs jax and orbax, so it waits for the "
-                  "orbax import tool (ROADMAP A.19), which is not part of "
-                  "this package"
-                  if saved in ("fused", "per_tensor")
+        origin = ("an orbax checkpoint of the JAX package (adamml_tpu), "
+                  "refused by the package; convert it with python "
+                  "orbax_to_torch.py SRC DST -- <the run's flags>, where "
+                  "jax and orbax are installed"
+                  if _is_orbax(meta, path)
                   else "not a checkpoint of this package")
         raise RuntimeError(f"checkpoint {path!r} has layout {saved!r}, "
                            f"{origin}; this package reads layout "
                            f"{LAYOUT!r} only")
+
+
+def seed_from_key(key) -> int:
+    """The trainer seed of an imported checkpoint: the words of the JAX
+    trainer's uint32 key (the meta's ``rng`` list), high word first, as
+    one integer mod 2**63. The two packages draw different streams from
+    their states anyway; the seed only keeps an imported run's noise
+    fixed from its start."""
+    seed = 0
+    for w in np.asarray(key, np.uint64).ravel():
+        seed = ((seed << 32) | int(w)) % 2 ** 63
+    return seed
+
+
+def write_imported_checkpoint(path: str, model_state: dict, main_opt: dict,
+                              policy_opt: Optional[dict], temperature: float,
+                              step: int, jax_meta: dict, layout: Optional[str],
+                              source: str) -> str:
+    """Write the checkpoint directory ``path`` (``state.pt`` and
+    ``meta.json``, as ``save_checkpoint`` writes them) from tensors already
+    in this package's layout: the state dicts of the model and of both
+    optimizers, the temperature and the step. The meta is the JAX one with
+    ``optim_layout`` "torch", ``imported_from`` (the JAX layout and the
+    source path) and ``rng`` as ``seed_from_key`` of the JAX key; the
+    plateau schedulers' state dicts carry over as they are (the same
+    keys)."""
+    path = os.path.abspath(path)
+    payload = {"model": model_state, "main_opt": main_opt,
+               "temperature": float(temperature), "step": int(step)}
+    if policy_opt is not None:
+        payload["policy_opt"] = policy_opt
+    meta = {**jax_meta, "imported_from": {"layout": layout,
+                                          "path": os.path.abspath(source)}}
+    if "rng" in meta:
+        meta["rng"] = seed_from_key(meta["rng"])
+    _write(payload, meta, os.path.dirname(path), path, False, None, "")
+    return path
 
 
 def read_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:

@@ -14,9 +14,10 @@ Two of the reference's three loading modes (the third, resume, is
 
 Both read full tensors; a weight sharded over --mesh_model keeps this
 rank's rows of its value. An orbax checkpoint of the JAX package is refused
-by name
-(``checkpoint.read_checkpoint``): reading one needs JAX and orbax, which
-this package does not import.
+by name (``checkpoint.read_checkpoint``): reading one needs JAX and orbax,
+which this package does not import. ``orbax_to_torch.py`` at the
+repository's root converts it, where JAX is installed, into a checkpoint
+directory that both modes (and resume) take.
 """
 
 from __future__ import annotations

@@ -8,7 +8,11 @@ their type (float32 outside the tensor cores here).
 
 from __future__ import annotations
 
+import json
+import os
 import subprocess
+import tempfile
+import time
 
 import torch
 
@@ -17,6 +21,8 @@ F32_OPS_PER_S = 67e12
 # zeroed between timed runs: larger than the 50 MB L2, so every run reads
 # its inputs from device memory
 L2_FLUSH_BYTES = 256 << 20
+# marker kernels before and after a profiled call (device_trace)
+MARKERS = 32
 
 
 def need_card() -> None:
@@ -78,3 +84,47 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
 
 def within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
+
+
+def device_trace(fn) -> tuple:
+    """(kernel events, wall us) of one call of ``fn``, ending in
+    torch.cuda.synchronize(): the "kernel" events of a torch.profiler
+    trace (CPU and CUDA activities) as (name, start us, duration us), and
+    the host's span of the call, counted as
+    adamml_tpu_torch/tools/profile_eval_step.py counts them. A later
+    session in a process can miss its first kernels (and a trace its
+    last), so runs of marker kernels (torch.cuda._sleep's spin_kernel)
+    come before and after the call; the trace must begin and end with a
+    marker, and the call's kernels are the others."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(10_000_000)
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("profiled_call"):
+            fn()
+            torch.cuda.synchronize()
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted(((e["name"], float(e["ts"]), float(e["dur"]))
+                      for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "kernel"), key=lambda k: k[1])
+    wall = sum(float(e["dur"]) for e in events if e.get("ph") == "X"
+               and e.get("name") == "profiled_call"
+               and e.get("cat") == "user_annotation")
+    marks = ["spin_kernel" in k[0] for k in kernels]
+    if not (marks and marks[0] and marks[-1]):
+        raise RuntimeError(f"check failed: the profiler trace lost the "
+                           f"markers around the profiled call "
+                           f"({len(kernels)} kernels)")
+    return [k for k, m in zip(kernels, marks) if not m], wall

@@ -83,6 +83,15 @@ Phases, each printing one JSON line (or several):
   tools       the stage-boundary prototype kernel against its plain version,
               then both kernel tools (adamml_tpu_torch/tools/bench_depthwise
               and bench_tpool) at their shapes;
+  update_mem  the optimizer-update and memory tools at flagship width:
+              adamml_tpu_torch/tools/bench_update (SGD over the main net,
+              Adam over the policy net; per-tensor, foreach and one flat
+              vector: ms per update, launches, bound and share, the rows
+              agreeing), then tools/mem_analysis at batch 8 in both
+              phases with the fused epilogue on and off (the step's
+              arguments, peak and ten largest blocks, its epilogue
+              launches; the main phase's peak within 5% of train's) and at
+              batch 24 in the policy phase;
   preprocess_card_vs_cpu  one flagship synthetic batch through the device
               preprocessing on the card and on the CPU (float32, 1e-3);
   cli         both training CLIs in process, as a user runs them:
@@ -179,11 +188,12 @@ from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
 from adamml_tpu_torch.tools import (bench_depthwise, bench_pipeline,
-                                    bench_tpool)
+                                    bench_tpool, bench_update, mem_analysis)
 from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                           bf16_ulp, bound_ms, event_ms,
-                                           l2_flush_buffer, nvidia_smi,
-                                           within_one_bf16_ulp)
+                                           bf16_ulp, bound_ms)
+from adamml_tpu_torch.tools.timing import device_trace as _device_trace
+from adamml_tpu_torch.tools.timing import (event_ms, l2_flush_buffer,
+                                           nvidia_smi, within_one_bf16_ulp)
 from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.engine import validate
 from adamml_tpu_torch.train.optim import build_optimizer
@@ -202,8 +212,6 @@ COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts)
 # phase adds the audio backbone's 13 stride-1 input gradients; the policy
 # phase adds the two trunks' forward again (remat) and their 26
 DW_STEP = {"eval": (51, 0), "main": (51, 13), "policy": (85, 26)}
-# marker kernels before and after a profiled call (_device_kernels)
-MARKERS = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -649,7 +657,8 @@ def _snapshot(model):
 def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
     """The flagship train step at full width: the main phase, then the
     policy phase, on one model and state, as the alternating curriculum
-    runs them. Returns each phase's launches."""
+    runs them. Returns each phase's launches, and under "peak" each
+    phase's max_memory_allocated."""
     label = "train_dw" if use_pallas_dw else "train"
     cfg = flagship_cfg()
     cfg.model.use_pallas_dw = use_pallas_dw
@@ -734,6 +743,7 @@ def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
              timing="host clock around each step, ending in "
                     "torch.cuda.synchronize()")
         out[phase] = launches
+        out.setdefault("peak", {})[phase] = peak
     hook.remove()
     del model, state, batches, seen
     torch.cuda.empty_cache()
@@ -1336,49 +1346,6 @@ def _cudnn_dw(x, taps, stride):
                             groups=c)
 
 
-def _device_trace(fn) -> tuple:
-    """(kernel events, wall us) of one call of ``fn``, ending in
-    torch.cuda.synchronize(): the "kernel" events of a torch.profiler
-    trace (CPU and CUDA activities) as (name, start us, duration us), and
-    the host's span of the call, counted as
-    adamml_tpu_torch/tools/profile_eval_step.py counts them. A later
-    session in a process can miss its first kernels (and a trace its
-    last), so runs of marker kernels (torch.cuda._sleep's spin_kernel)
-    come before and after the call; the trace must begin and end with a
-    marker, and the call's kernels are the others."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        torch.cuda._sleep(10_000_000)
-        for _ in range(MARKERS):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        with torch.profiler.record_function("profiled_call"):
-            fn()
-            torch.cuda.synchronize()
-        for _ in range(MARKERS):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = sorted(((e["name"], float(e["ts"]), float(e["dur"]))
-                      for e in events if e.get("ph") == "X"
-                      and e.get("cat") == "kernel"), key=lambda k: k[1])
-    wall = sum(float(e["dur"]) for e in events if e.get("ph") == "X"
-               and e.get("name") == "profiled_call"
-               and e.get("cat") == "user_annotation")
-    marks = ["spin_kernel" in k[0] for k in kernels]
-    check(bool(marks) and marks[0] and marks[-1],
-          f"the profiler trace lost the markers around the profiled call "
-          f"({len(kernels)} kernels)")
-    return [k for k, m in zip(kernels, marks) if not m], wall
-
-
 def _device_kernels(fn) -> list:
     """Names of the kernels ``fn`` puts on the card (``_device_trace``)."""
     return [k[0] for k in _device_trace(fn)[0]]
@@ -1693,6 +1660,62 @@ def tools_phase(dev) -> dict:
     res["dw_rows"] = dw_rows
     torch.cuda.empty_cache()
     return res
+
+
+# mem_analysis at batch 8: (phase, --fused_tpool) -> the epilogue's
+# (forward, backward) launches in the measured step
+MEM_LAUNCHES = {("policy", 1): (3, 0), ("main", 1): (3, 3),
+                ("policy", 0): (0, 0), ("main", 0): (0, 0)}
+
+
+def update_mem_phase(dev, card: str, train_peak: int) -> dict:
+    """The update and memory tools at flagship width. (a) bench_update's
+    rows (SGD over the main net, Adam over the policy net; per_tensor,
+    foreach and vector), each with its bound and share, and the rows'
+    agreement: bit for bit, or within 1e-6 of each tensor's largest value.
+    (b) mem_analysis at batch 8 in both phases with --fused_tpool 1 and 0:
+    the epilogue's launches in the measured step (MEM_LAUNCHES), a peak
+    above the arguments, and the main phase's fused peak within 5% of the
+    peak train_phase read around the same step. (c) mem_analysis at the JAX
+    tool's default, batch 24 in the policy phase. Counts zeroed before (b)
+    and read after (c)."""
+    t0 = time.perf_counter()
+    for row in bench_update.run(dev):
+        for label, entries in row.get("agreement", {}).items():
+            for k, a in entries.items():
+                check(a["bitwise"] or a["max_rel_diff"] <= 1e-6,
+                      f"bench_update {row['optimizer']}: the {label} row's "
+                      f"{k} beyond 1e-6 of the foreach row's ({a})")
+        emit("update_mem", tool="bench_update", card=card, **row)
+    zero_counts()
+    runs = {}
+    for phase in ("policy", "main"):
+        for fused in (1, 0):
+            runs[phase, fused] = mem_analysis.run(dev, phase=phase, batch=8,
+                                                  fused_tpool=fused)
+    runs["policy", 1, 24] = mem_analysis.run(dev, phase="policy", batch=24,
+                                             fused_tpool=1)
+    launches = all_counts()
+    for key, r in runs.items():
+        got = (r["launches"][tp.KERNEL], r["launches"][tp.KERNEL_BWD])
+        check(got == MEM_LAUNCHES[key[:2]],
+              f"mem_analysis {key}: {got} epilogue (forward, backward) "
+              f"launches, expected {MEM_LAUNCHES[key[:2]]}")
+        check(r["peak_bytes"] > r["arguments_bytes"],
+              f"mem_analysis {key}: peak {r['peak_bytes']} not above the "
+              f"arguments {r['arguments_bytes']}")
+        emit("update_mem", tool="mem_analysis", card=card, **r)
+    peak = runs["main", 1]["peak_bytes"]
+    check(abs(peak - train_peak) <= 0.05 * train_peak,
+          f"mem_analysis main-phase peak {peak} not within 5% of "
+          f"train_phase's {train_peak}")
+    emit("update_mem", case="main_peak_vs_train", mem_analysis=peak,
+         train=train_peak, ratio=peak / train_peak,
+         fused_off_minus_on={p: runs[p, 0]["peak_bytes"]
+                             - runs[p, 1]["peak_bytes"]
+                             for p in ("policy", "main")},
+         launches=launches, seconds=time.perf_counter() - t0)
+    return {"launches": launches}
 
 
 # the flagship's flags (flagship_cfg(): ResNet-50, 224, default canvas and
@@ -3266,6 +3289,7 @@ def main() -> int:
     tiny_reference_phase(dev, use_pallas_dw=True)
     tiny_train_phase(dev, use_pallas_dw=True)
     ores = tools_phase(dev)
+    ures = update_mem_phase(dev, smi, tres["peak"]["main"])
     preprocess_phase(dev)
     cres = cli_phase(dev, smi)
     rres = real_data_phase(dev, smi)
@@ -3322,6 +3346,7 @@ def main() -> int:
                 c[tp.KERNEL] for c in tpres["steps"]["launches"]],
             "tensor_parallel_2x1_packed_eval_per_rank": [
                 c[tp.KERNEL] for c in tpres["packed"]["launches"]],
+            "update_mem_mem_analysis": ures["launches"][tp.KERNEL],
             **{f"eval_capacity_{k}": v[tp.KERNEL]
                for k, v in eres["launches"].items()}},
         "packed_rows": eres["kernel"],
@@ -3368,7 +3393,8 @@ def main() -> int:
             "tensor_parallel_1x2_main_step_trace_per_rank": [
                 t["backward"] for t in tpres["steps"]["main_step_trace"]],
             "tensor_parallel_1x2_steps_per_rank": [
-                c[tp.KERNEL_BWD] for c in tpres["steps"]["launches"]]},
+                c[tp.KERNEL_BWD] for c in tpres["steps"]["launches"]],
+            "update_mem_mem_analysis": ures["launches"][tp.KERNEL_BWD]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
                 "flagship stage boundaries of one 8-clip main-phase step; "

@@ -11,7 +11,9 @@ card is present. The data-parallel checks (parallel/mesh.py): an NCCL
 process group of one, in this process, is the single process bit for bit,
 and holds its collectives in a replayed CUDA graph; gloo refuses a graph;
 two processes sharing the card over gloo match the single process
-(tests/test_torch_multiprocess.py's comparison). The file imports no JAX,
+(tests/test_torch_multiprocess.py's comparison). The update and memory
+tools (bench_update's rows agree; mem_analysis reads a step's memory and
+its epilogue launches). The file imports no JAX,
 so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
@@ -858,3 +860,38 @@ def test_two_ranks_share_the_card(sync_bn, tmp_path):
     assert results[0]["synced"] is results[1]["synced"] is sync_bn
     for i, c in enumerate(results[0]["compare"]):
         check_compare(c, i)
+
+
+def test_bench_update_rows_agree_on_the_card():
+    """bench_update's per_tensor and vector rows leave the foreach row's
+    parameters and state: the vector row bit for bit (the same _foreach
+    kernels over one tensor), the per_tensor row bit for bit or within
+    1e-6 of each tensor's largest value (other kernels, which may contract
+    another multiply-add); each row timed, traced and bounded."""
+    _need_card()
+    from adamml_tpu_torch.tools import bench_update
+
+    rows = bench_update.run(torch.device("cuda", 0), tiny=True, iters=20,
+                            warmup=2)
+    for r in rows:
+        if "agreement" in r:
+            for k, a in r["agreement"]["vector"].items():
+                assert a["bitwise"], (r["optimizer"], k, a)
+            for k, a in r["agreement"]["per_tensor"].items():
+                assert a["bitwise"] or a["max_rel_diff"] <= 1e-6, (k, a)
+        else:
+            assert r["ms"] > 0 and r["launches_per_update"] > 0
+            assert 0 < r["share_of_bound"] < 1.5
+
+
+def test_mem_analysis_main_phase_on_the_card():
+    """--phase main --batch 2: a peak above the step's arguments, and the
+    fused epilogue's 3 forward and 3 backward launches in the step."""
+    _need_card()
+    from adamml_tpu_torch.tools import mem_analysis
+
+    r = mem_analysis.run(torch.device("cuda", 0), phase="main", batch=2)
+    assert r["peak_bytes"] > r["arguments_bytes"] > 0
+    assert r["arguments"]["optimizer_state"] > 0
+    assert r["launches"] == {ttp.KERNEL: 3, ttp.KERNEL_BWD: 3}
+    assert len(r["top_blocks"]) == mem_analysis.TOP

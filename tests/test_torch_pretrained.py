@@ -323,13 +323,27 @@ def test_orbax_checkpoint_is_refused_by_name(tmp_path, loader):
         {"epoch": 1, "optim_layout": "fused"}))
     model, _ = tbuilder.build_model(flagship_cfg(tiny=True), device="cpu")
     with pytest.raises(RuntimeError, match="orbax checkpoint of the JAX "
-                       r"package.*orbax import tool \(ROADMAP A.19\)"):
+                       r"package.*convert it with python orbax_to_torch.py"):
         if loader == "pretrained":
             tpre.load_pretrained_adamml(model, TrainState(None, None),
                                         str(tmp_path))
         else:
             tpre.load_unimodality_pretrained(
                 model, ["rgb"], [str(tmp_path)], depth=18)
+
+
+@pytest.mark.parametrize("marker", ["_CHECKPOINT_METADATA", "manifest.ocdbt"])
+def test_untagged_orbax_checkpoint_is_refused_by_name(tmp_path, marker):
+    """A checkpoint saved outside the JAX curriculum has no layout tag; the
+    files orbax writes name it."""
+    (tmp_path / "meta.json").write_text(json.dumps({"epoch": 1}))
+    (tmp_path / marker).write_text("{}")
+    model, _ = tbuilder.build_model(flagship_cfg(tiny=True), device="cpu")
+    with pytest.raises(RuntimeError, match="layout None, an orbax checkpoint "
+                       "of the JAX package.*convert it with python "
+                       "orbax_to_torch.py"):
+        tpre.load_pretrained_adamml(model, TrainState(None, None),
+                                    str(tmp_path))
 
 
 def test_path_count_must_match_modalities(tmp_path):
