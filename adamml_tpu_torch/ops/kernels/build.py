@@ -13,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -54,6 +55,32 @@ def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
     the build of the current source."""
     return library_path(name).with_suffix(".log").read_text()
+
+
+def ptxas_entries(name: str) -> List[dict]:
+    """Each kernel instantiation in the build log of ``name``: its mangled
+    entry name, registers a thread, static shared memory, stack frame and
+    spill stores and loads (bytes), as ``-Xptxas -v`` reports them."""
+    entries: List[dict] = []
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append({"entry": m.group(1)})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entries[-1].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entries[-1]["smem"] = int(m.group(1)) if m else 0
+    return entries
 
 
 def build(names: Iterable[str]) -> None:

@@ -46,8 +46,11 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 import platform
 import socket
+import tempfile
+import uuid
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -228,10 +231,22 @@ def shutdown() -> None:
 
 
 def free_local_url() -> str:
-    """A ``tcp://127.0.0.1:PORT`` URL on a port free now."""
+    """A ``tcp://127.0.0.1:PORT`` URL on a port free now. The port is
+    released on return, so another process can take it before the ranks
+    bind it; ``file_url`` has no such window."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+def file_url(directory) -> str:
+    """A ``file://`` rendezvous URL on a new file name in ``directory``
+    (``init_process_group`` wants a file that does not exist or is empty,
+    one a group, for gloo and NCCL alike): ranks on one host meet there
+    without a port chosen and released first."""
+    path = os.path.join(os.path.abspath(directory),
+                        f"rendezvous-{uuid.uuid4().hex}")
+    return f"file://{path}"
 
 
 def active() -> bool:
@@ -568,20 +583,27 @@ def launch(run: Callable, cfg, devices: Sequence[str],
     one process per device, as the reference does (reference
     train_adamml.py:54-63): --world-size counts nodes and --rank names this
     node, so rank = node * len(devices) + local index. One node without
-    --dist-url rendezvouses on a free local port. A failing process makes
-    this raise."""
+    --dist-url or --hostfile rendezvouses through a file in a temporary
+    directory that lives as long as the ranks. Every rank gets this
+    process's ``DEFAULT_TIMEOUT_S`` (a spawned process imports this module
+    afresh). A failing process makes this raise."""
     if not spawn:
         return run(cfg, devices[0], backend)
     where = coordinator(cfg)
-    url, nodes, node = where if where else (free_local_url(), 1, 0)
-    torch.multiprocessing.spawn(
-        _spawned, args=(run, cfg, list(devices), url, nodes, node, backend),
-        nprocs=len(devices), join=True)
+    with tempfile.TemporaryDirectory(prefix="adamml_rendezvous_") as tmp:
+        url, nodes, node = where if where else (file_url(tmp), 1, 0)
+        torch.multiprocessing.spawn(
+            _spawned, args=(run, cfg, list(devices), url, nodes, node,
+                            backend, DEFAULT_TIMEOUT_S),
+            nprocs=len(devices), join=True)
     return 0
 
 
 def _spawned(i: int, run: Callable, cfg, devices: List[str], url: str,
-             nodes: int, node: int, backend: Optional[str]) -> None:
+             nodes: int, node: int, backend: Optional[str],
+             timeout_s: float) -> None:
+    global DEFAULT_TIMEOUT_S
+    DEFAULT_TIMEOUT_S = timeout_s
     r = cfg.runtime
     r.hostfile, r.dist_url = "", url
     r.world_size, r.rank = nodes * len(devices), node * len(devices) + i

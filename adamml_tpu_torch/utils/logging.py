@@ -6,8 +6,17 @@ from __future__ import annotations
 
 import os
 import shutil
+import sys
 import time
 from typing import Optional, TextIO
+
+
+def _print_line(line: str) -> None:
+    """``line`` and its newline to stdout in one write: under ``python -u``
+    or PYTHONUNBUFFERED, ``print`` writes the two apart, and ranks that
+    share a pipe then splice each other's lines together."""
+    sys.stdout.write(f"{line}\n")
+    sys.stdout.flush()
 
 
 class RankZeroLogger:
@@ -29,9 +38,9 @@ class RankZeroLogger:
         rank (the summaries every rank computes, to compare them)."""
         if self.rank != 0:
             if every_rank:
-                print(f"[rank {self.rank}] {msg}", flush=True)
+                _print_line(f"[rank {self.rank}] {msg}")
             return
-        print(msg, flush=True)
+        _print_line(msg)
         if self._fh is not None:
             print(msg, file=self._fh, flush=True)
 

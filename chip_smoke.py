@@ -14,15 +14,22 @@ Phases, each printing one JSON line (or several):
               memory, spills;
   one_kernel_a_call  torch.profiler's count of kernels in one depthwise
               forward call and one stride-1 input-gradient call (one
-              each), before any other profiled run;
+              each), and in one call of the epilogue's backward (the
+              plan's one), before any other profiled run;
   kernel      the fused epilogue's forward kernel against its plain PyTorch
               version, at the flagship eval shapes and at grouped, float32
               and odd-F cases, with CUDA-event times beside the bound;
               then on a channel block against its full-C launch;
   kernel_bwd  the backward kernel against its plain version, at the three
               flagship train shapes (R = 1, S = 5), float32, odd F, R = 2
-              and an engineered tie, with the same timings; then on a
-              channel block against its full-C launch;
+              and an engineered tie, with the same timings, registers,
+              spills, blocks an SM and partials bytes per stage; each
+              case launched twice (bit-identical) and, but for stages 1
+              and 2, its per-row sums held to the plan's order (bwd_plan,
+              planned_row_sums) bit for bit; then on a channel block
+              against its full-C launch
+              (bit for bit, da and db too), and a CUDA graph of the
+              backward alone, replayed, against an eager call;
   serve       the flagship AdaMML eval step at full width (ResNet-50 +
               MobileNetV2 audio, rgb + sound, 5 segments x 8 frames,
               224x224, LSTM policy, learnable late fusion, bf16, 31
@@ -81,8 +88,9 @@ Phases, each printing one JSON line (or several):
               the CPU (eval forward; one step of each phase), then the same
               with use_pallas_dw=True (tiny_dw_reference, tiny_dw_train);
   tools       the stage-boundary prototype kernel against its plain version,
-              then both kernel tools (adamml_tpu_torch/tools/bench_depthwise
-              and bench_tpool) at their shapes;
+              then the kernel tools (adamml_tpu_torch/tools/bench_depthwise,
+              bench_tpool and bench_tpool_bwd: the backward kernel on its
+              plan and on others, beside PyTorch's add) at their shapes;
   update_mem  the optimizer-update and memory tools at flagship width:
               adamml_tpu_torch/tools/bench_update (SGD over the main net,
               Adam over the policy net; per-tensor, foreach and one flat
@@ -188,7 +196,8 @@ from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
 from adamml_tpu_torch.tools import (bench_depthwise, bench_pipeline,
-                                    bench_tpool, bench_update, mem_analysis)
+                                    bench_tpool, bench_tpool_bwd,
+                                    bench_update, mem_analysis)
 from adamml_tpu_torch.tools.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                            bf16_ulp, bound_ms)
 from adamml_tpu_torch.tools.timing import device_trace as _device_trace
@@ -405,17 +414,88 @@ def _bwd_case_inputs(label, n, f, h, w, c, r, s, dtype, gen, dev):
     return y, ident, a, b, ct
 
 
+# the backward cases whose planned sum order is emulated on the host
+# (planned_row_sums): stage 3 and the small ones; stages 1 and 2 would
+# take the host tens of seconds
+PLANNED_ON_CPU_MAX = 1 << 25
+
+
+def bwd_ptxas() -> dict:
+    """The backward kernel's instantiations from its build log, by dtype:
+    registers, spills, stack and static shared memory (every one must
+    spill nothing)."""
+    got = {}
+    for e in build.ptxas_entries(tp.KERNEL_BWD):
+        if BWD_NAME not in e["entry"]:
+            continue
+        dtype = "bfloat16" if "bfloat16" in e["entry"] else "float32"
+        got[dtype] = {k: e[k] for k in ("registers", "spill_stores",
+                                        "spill_loads", "stack", "smem")}
+    check(sorted(got) == ["bfloat16", "float32"],
+          f"the backward kernel's build log names {sorted(got)}")
+    for dtype, e in got.items():
+        check(e["spill_stores"] == e["spill_loads"] == 0,
+              f"the backward kernel ({dtype}) spills: {e}")
+    return got
+
+
+def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
+    """Resident blocks an H100 SM holds of a kernel: its 65,536 registers
+    (allocated 256 a warp at a time), its 233,472 bytes of shared memory
+    (1,024 of them reserved per block) and 2,048 threads."""
+    warps = -(-threads // 32)
+    regs = -(-registers * 32 // 256) * 256 * warps
+    return min(65536 // regs, 233472 // (smem + 1024), 2048 // threads)
+
+
+def _bwd_graph_replay(dev, gen) -> None:
+    """The backward alone captured in a CUDA graph (its memset, tickets and
+    scratch inside the capture) and replayed on new inputs copied into the
+    captured ones: bit for bit the eager call on those inputs."""
+    args = _bwd_case_inputs("graph", 40, 4, 28, 28, 512, 1, 5,
+                            torch.bfloat16, gen, dev)
+    static = [t.clone() for t in args]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tp.fused_bn_add_relu_tpool_bwd(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tp.fused_bn_add_relu_tpool_bwd(*static)
+    for seed in (1, 2):
+        fresh = _bwd_case_inputs(
+            "graph", 40, 4, 28, 28, 512, 1, 5, torch.bfloat16,
+            torch.Generator(device=dev).manual_seed(seed), dev)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want = tp.fused_bn_add_relu_tpool_bwd(*fresh)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w_) for g, w_ in zip(out, want)),
+              f"graph replay {seed}: the backward differs from an eager "
+              "call on the same inputs")
+    emit("kernel_bwd", case="graph_replay", shape=[40, 4, 28, 28, 512],
+         replays=2, bit_equal_to_eager=True)
+    del graph, static, out, want
+
+
 def kernel_bwd_phase(dev) -> dict:
     """The backward kernel against reference_bwd. dy and dident within one
     bf16 ulp (float32: 1e-6 relative); the kernel rounds where the plain
     version does, so both are expected bit-equal. da and db within 1e-4 of
     their largest entry: float32 sums of up to F*H*W*N/(R*S) terms (200,704
-    at stage 1) taken in another order."""
+    at stage 1) taken in another order. Every case twice, bit for bit; the
+    per-row sums (before the plain per-group sum) bit for bit those of
+    ``planned_row_sums`` on the CPU, in the order ``bwd_plan`` states, for
+    every case up to PLANNED_ON_CPU_MAX elements."""
     gen = torch.Generator(device=dev).manual_seed(10)
     flush = l2_flush_buffer(dev)
+    ptxas = bwd_ptxas()
     res = {"max_abs_err": 0.0, "dab_max_rel_err": 0.0, "ms": 0.0,
            "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0,
-           "stages": {}}
+           "stages": [], "ptxas": ptxas}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = BWD_CASES + [("ties", 2, 4, 8, 8, 8, 1, 1, torch.bfloat16,
                           False)]
     for label, n, f, h, w, c, r, s, dtype, timed in cases:
@@ -423,7 +503,20 @@ def kernel_bwd_phase(dev) -> dict:
                                               dtype, gen, dev)
         got = tp.fused_bn_add_relu_tpool_bwd(y, ident, a, b, ct)
         want = tp.reference_bwd(y, ident, a, b, ct)
+        again = tp.fused_bn_add_relu_tpool_bwd(y, ident, a, b, ct)
         torch.cuda.synchronize()
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+              f"{label}: two launches on the same inputs differ")
+        plan = tp.bwd_plan(n, f, h, w, c, y.element_size(), sms)
+        if y.numel() <= PLANNED_ON_CPU_MAX:
+            rows = tp._launch_bwd_rows(y, ident, a, b, ct)[2].cpu()
+            planned = tp.planned_row_sums(
+                tp.routed_dpre(y.cpu(), ident.cpu(), a.cpu(), b.cpu(),
+                               ct.cpu()), y.cpu(), plan)
+            check(torch.equal(rows, planned),
+                  f"{label}: the kernel's per-row sums differ from the "
+                  f"plan's order (max abs "
+                  f"{float((rows - planned).abs().max())})")
         errs = [float((g.float() - w_.float()).abs().max())
                 for g, w_ in zip(got, want)]
         for g, w_, what in zip(got[:2], want[:2], ("dy", "dident")):
@@ -452,7 +545,14 @@ def kernel_bwd_phase(dev) -> dict:
                     rel_err_da_db=dab_rel,
                     tolerance="dy, dident: " + (
                         "1 bf16 ulp" if dtype == torch.bfloat16
-                        else "1e-6 relative") + "; da, db: 1e-4 of max")
+                        else "1e-6 relative") + "; da, db: 1e-4 of max",
+                    two_launches_bit_identical=True,
+                    rows_bit_equal_to_plan=(True if y.numel()
+                                            <= PLANNED_ON_CPU_MAX
+                                            else "not emulated"),
+                    plan={k: plan[k] for k in (
+                        "blocks", "chunks", "chunk_pixels", "slices",
+                        "slice_groups", "waves", "partials_bytes")})
         if timed:
             nbytes, ops = tpool_bwd_work(n, f, h, w, c, y.element_size())
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -473,25 +573,41 @@ def kernel_bwd_phase(dev) -> dict:
                         timing="CUDA events, kernel mean of 20 after 3 "
                                "warm-up, plain mean of 5 after 1, L2 "
                                "flushed between launches")
+            regs = ptxas["bfloat16" if dtype == torch.bfloat16
+                         else "float32"]
+            stage = dict(case=label, kernel_ms=k_ms, bound_ms=bound,
+                         share_of_bound=bound / k_ms, plain_ms=p_ms,
+                         library_ms=None, registers=regs["registers"],
+                         spill_bytes=regs["spill_stores"]
+                         + regs["spill_loads"],
+                         blocks_per_sm=blocks_per_sm(
+                             regs["registers"],
+                             plan["smem_bytes"] + regs["smem"],
+                             plan["threads"]),
+                         blocks=plan["blocks"],
+                         partials_bytes=plan["partials_bytes"],
+                         partials_share_of_bound_bytes=plan[
+                             "partials_bytes"] / nbytes)
+            line.update({k: v for k, v in stage.items() if k not in line})
+            res["stages"].append(stage)
             res["ms"] += k_ms
             res["plain_ms"] += p_ms
             res["bound_ms"] += bound
             res["bytes_s"] += bytes_s
             res["ops_s"] += ops_s
         emit("kernel_bwd", **line)
-        del y, ident, a, b, ct, got, want
+        del y, ident, a, b, ct, got, want, again
     _kernel_bwd_channel_block(dev, gen)
+    _bwd_graph_replay(dev, gen)
     torch.cuda.empty_cache()
     return res
 
 
 def _kernel_bwd_channel_block(dev, gen) -> None:
     """The backward kernel on the upper channel block [C/2, C) of the
-    stage-2 train shape against that block of its full-C launch: dy and
-    dident bit for bit; da and db hold per-channel sums whose order
-    follows the launch geometry, which depends on C (tpool_fused_bwd.cu
-    ``geometry``), so they are held to the full-C check's 1e-4 of their
-    largest entry and their bit equality is reported."""
+    stage-2 train shape against that block of its full-C launch, bit for
+    bit: dy and dident, and da and db, whose sum order follows the plan's
+    pixel lanes and chunks, which do not depend on C (bwd_plan)."""
     n, f, h, w, c = 40, 4, 28, 28, 512
     lo, hi = c // 2, c
     args = _bwd_case_inputs("block", n, f, h, w, c, 1, 5, torch.bfloat16,
@@ -502,17 +618,14 @@ def _kernel_bwd_channel_block(dev, gen) -> None:
         check(torch.equal(g, _block(w_, lo, hi)),
               f"channel_block: {what} of the backward kernel on channels "
               f"[{lo}, {hi}) differs from that block of its full-C launch")
-    rel = max(float((g - _block(w_, lo, hi)).abs().max())
-              / max(float(w_.abs().max()), 1e-30)
-              for g, w_ in zip(got[2:], whole[2:]))
-    check(rel <= 1e-4, f"channel_block: da/db off by {rel} of their largest "
-                       "entry (tolerance 1e-4)")
+    for g, w_, what in zip(got[2:], whole[2:], ("da", "db")):
+        check(torch.equal(g, _block(w_, lo, hi)),
+              f"channel_block: {what} of the backward kernel on channels "
+              f"[{lo}, {hi}) differs from that block of its full-C launch "
+              f"(max abs {float((g - _block(w_, lo, hi)).abs().max())})")
     emit("kernel_bwd", case="channel_block", shape=[n, f, h, w, c], R=1,
          S=5, channels=[lo, hi], dtype="bfloat16",
-         dy_dident_bit_equal_to_full_c=True,
-         da_db_bit_equal_to_full_c=all(torch.equal(g, _block(w_, lo, hi))
-                                       for g, w_ in zip(got[2:], whole[2:])),
-         rel_err_da_db=rel)
+         dy_dident_bit_equal_to_full_c=True, da_db_bit_equal_to_full_c=True)
 
 
 def serve_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
@@ -1592,6 +1705,26 @@ def one_kernel_phase(dev) -> None:
     emit("one_kernel_a_call", shape=list(x.shape), forward_kernels=fwd,
          input_gradient_kernels=dx)
     del x, xg, out, ct
+    # the epilogue's backward at the stage-3 train shape: its launch puts
+    # the plan's kernels on the card (the memset of its tickets is no
+    # kernel); the whole call adds the plain per-group sum of its rows
+    args = _bwd_case_inputs("one", 40, 2, 14, 14, 1024, 1, 5,
+                            torch.bfloat16, gen, dev)
+    tp.fused_bn_add_relu_tpool_bwd(*args)
+    bwd = _device_kernels(lambda: tp._launch_bwd_rows(*args))
+    call = _device_kernels(lambda: tp.fused_bn_add_relu_tpool_bwd(*args))
+    want = tp.bwd_plan(40, 2, 14, 14, 1024, 2,
+                       torch.cuda.get_device_properties(
+                           dev).multi_processor_count)["kernels"]
+    check(len(bwd) == want and all(BWD_NAME in k for k in bwd),
+          f"one backward launch put {bwd} on the card, expected {want} "
+          f"kernel(s) named {BWD_NAME}")
+    check(sum(BWD_NAME in k for k in call) == want,
+          f"one backward call put {call} on the card, expected {want} "
+          f"kernel(s) named {BWD_NAME} beside the per-group sum")
+    emit("one_kernel_a_call", shape=[40, 2, 14, 14, 1024],
+         backward_kernels=bwd, planned=want, backward_call_kernels=call)
+    del args
     torch.cuda.empty_cache()
 
 
@@ -1637,9 +1770,16 @@ def tools_phase(dev) -> dict:
     zero_counts()
     dw_rows = bench_depthwise.run(dev)
     tp_rows = bench_tpool.run(dev)
+    bwd_rows = bench_tpool_bwd.run(dev)
     launches = all_counts()
     for row in dw_rows:
         emit("tools", tool="bench_depthwise", **row)
+    for row in bwd_rows:
+        emit("tools", tool="bench_tpool_bwd", **row)
+        check(row["row"] == "add" or (row["dy_dident_equal"]
+                                      and row["rows_within_1e4"]),
+              f"bench_tpool_bwd {row['stage']} {row['row']}: dy/dident or "
+              "the rows' sums differ from the planned launch's")
     res = {"proto_max_abs_err": err_max, "launches": launches, "ms": 0.0,
            "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
     for row in tp_rows:
@@ -1655,7 +1795,8 @@ def tools_phase(dev) -> dict:
             res["ops_s"] += ops / F32_OPS_PER_S
         if row["row"] == "tpool_slice":
             res["plain_ms"] += row["ms"]
-    check(launches[tpp.KERNEL] > 0 and launches[dwk.KERNEL] > 0,
+    check(launches[tpp.KERNEL] > 0 and launches[dwk.KERNEL] > 0
+          and launches[tp.KERNEL_BWD] > 0,
           f"the tools launched no kernel: {launches}")
     res["dw_rows"] = dw_rows
     torch.cuda.empty_cache()
@@ -3394,12 +3535,16 @@ def main() -> int:
                 t["backward"] for t in tpres["steps"]["main_step_trace"]],
             "tensor_parallel_1x2_steps_per_rank": [
                 c[tp.KERNEL_BWD] for c in tpres["steps"]["launches"]],
-            "update_mem_mem_analysis": ures["launches"][tp.KERNEL_BWD]},
+            "update_mem_mem_analysis": ures["launches"][tp.KERNEL_BWD],
+            "tools": ores["launches"][tp.KERNEL_BWD]},
         "dab_max_rel_err": bres["dab_max_rel_err"],
+        "per_stage": bres["stages"], "ptxas": bres["ptxas"],
         "note": "ms, plain_ms and bound_ms are sums over the three "
-                "flagship stage boundaries of one 8-clip main-phase step; "
-                "max_abs_err is dy's and dident's; launches are the "
-                "main-phase train path's (4 steps)"}, {
+                "flagship stage boundaries of one 8-clip main-phase step "
+                "(per_stage: each boundary, with the kernel's registers, "
+                "blocks an SM and partials bytes); max_abs_err is dy's and "
+                "dident's; launches are the main-phase train path's (4 "
+                "steps)"}, {
         "name": dwk.KERNEL, "route": "cuda",
         "source": "adamml_tpu_torch/csrc/depthwise.cu",
         "replaces": "adamml_tpu/ops/pallas/depthwise.py:78",

@@ -1,6 +1,8 @@
 """PyTorch port on a CUDA card: the fused epilogue's forward and backward
 kernels, the depthwise kernel (forward and flipped-tap input gradient) and
-the stage-boundary prototype kernel against their plain versions, the
+the stage-boundary prototype kernel against their plain versions (the
+backward also for its determinism, its plan's sum order, a channel block,
+its kernels in a profile, a replayed graph and its build log), the
 tiny float32 eval and train steps on the card against the CPU, with the
 depthwise flag off and on, the device preprocessing and a tiny
 train_adamml run on the card against the CPU, and the multi-step dispatch's
@@ -157,6 +159,116 @@ def test_cuda_autograd_runs_both_kernels():
     assert ttp.launch_counts[ttp.KERNEL_BWD] == counts[ttp.KERNEL_BWD] + 1
     _assert_bwd_close([t.grad for t in leaves],
                       ttp.reference_bwd(y, ident, a, b, ct))
+
+
+def _bwd_args(n, f, h, w, c, r, s, dtype, seed=1):
+    y, ident, a, b = _args(n, f, h, w, c, r, s, dtype, seed)
+    return y, ident, a, b, _ct(y, seed + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_cuda_bwd_kernel_is_deterministic_and_follows_its_plan(shape,
+                                                                dtype):
+    """Two launches on the same inputs give the same bits, and the
+    kernel's per-row sums are bit for bit ``planned_row_sums`` on the CPU:
+    the order ``bwd_plan`` states."""
+    _need_card()
+    args = _bwd_args(**shape, dtype=dtype)
+    first = ttp.fused_bn_add_relu_tpool_bwd(*args)
+    second = ttp.fused_bn_add_relu_tpool_bwd(*args)
+    for g, g2 in zip(first, second):
+        assert torch.equal(g, g2)
+    y = args[0]
+    plan = ttp.bwd_plan(*y.shape, y.element_size(),
+                        torch.cuda.get_device_properties(
+                            0).multi_processor_count)
+    rows = ttp._launch_bwd_rows(*args)[2].cpu()
+    cpu = [t.cpu() for t in args]
+    assert torch.equal(rows, ttp.planned_row_sums(ttp.routed_dpre(*cpu),
+                                                  cpu[0], plan))
+
+
+def test_cuda_bwd_channel_block_is_bit_identical():
+    """The upper channel block [C/2, C) of the stage-2 train shape, made
+    contiguous, with the affine's slice: dy, dident, da and db bit for bit
+    that block of the full-C launch (the sum order does not depend on C)."""
+    _need_card()
+    args = _bwd_args(40, 4, 28, 28, 512, 1, 5, torch.bfloat16)
+    whole = ttp.fused_bn_add_relu_tpool_bwd(*args)
+    got = ttp.fused_bn_add_relu_tpool_bwd(
+        *(t[..., 256:].contiguous() for t in args))
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w[..., 256:].contiguous())
+
+
+def test_cuda_bwd_one_call_puts_the_planned_kernels(tmp_path):
+    """One backward launch at the stage-3 train shape puts the plan's
+    kernels on the card (torch.profiler): one, named for the kernel (the
+    call then sums its rows per group in plain PyTorch)."""
+    _need_card()
+    args = _bwd_args(40, 2, 14, 14, 1024, 1, 5, torch.bfloat16)
+    ttp.fused_bn_add_relu_tpool_bwd(*args)
+    got = _device_kernels(lambda: ttp._launch_bwd_rows(*args),
+                          tmp_path / "bwd.json")
+    want = ttp.bwd_plan(40, 2, 14, 14, 1024, 2,
+                        torch.cuda.get_device_properties(
+                            0).multi_processor_count)["kernels"]
+    assert len(got) == want and all("tpool_fused_bwd_kernel" in k
+                                    for k in got), got
+
+
+def test_cuda_bwd_graph_replay_equals_eager():
+    """The backward alone captured in a CUDA graph (its tickets' memset
+    and scratch inside) and replayed on new inputs: bit for bit the eager
+    call on them."""
+    _need_card()
+    static = list(_bwd_args(40, 4, 28, 28, 512, 1, 5, torch.bfloat16))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ttp.fused_bn_add_relu_tpool_bwd(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ttp.fused_bn_add_relu_tpool_bwd(*static)
+    for seed in (5, 7):
+        fresh = _bwd_args(40, 4, 28, 28, 512, 1, 5, torch.bfloat16, seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want = ttp.fused_bn_add_relu_tpool_bwd(*fresh)
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+def test_bench_tpool_bwd_rows_agree_on_the_card():
+    """tools/bench_tpool_bwd.py at batch 2: every kernel row's dy and
+    dident equal the planned launch's, its rows' sums within 1e-4."""
+    _need_card()
+    from adamml_tpu_torch.tools import bench_tpool_bwd
+
+    rows = bench_tpool_bwd.run(torch.device("cuda", 0), batch=2)
+    assert {r["stage"] for r in rows} == {"stage1", "stage2", "stage3"}
+    for r in rows:
+        if r["row"] != "add":
+            assert r["dy_dident_equal"] and r["rows_within_1e4"], r
+
+
+def test_cuda_bwd_build_spills_nothing():
+    """Every instantiation of the backward kernel in its build log: no
+    spill stores or loads, within the launch bound's 128 registers."""
+    _need_card()
+    from adamml_tpu_torch.ops.kernels import build
+
+    build.build([ttp.KERNEL_BWD])
+    entries = [e for e in build.ptxas_entries(ttp.KERNEL_BWD)
+               if "tpool_fused_bwd_kernel" in e["entry"]]
+    assert len(entries) == 2, entries
+    for e in entries:
+        assert e["spill_stores"] == e["spill_loads"] == 0, e
+        assert e["registers"] <= 128, e
 
 
 def test_cuda_kernel_refuses_grad_and_bad_args():
@@ -760,14 +872,14 @@ def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch):
 
 
 @pytest.fixture
-def group_of_one(request):
+def group_of_one(request, tmp_path):
     """A process group of one on cuda:0 in this process (``request.param``:
     the backend), left at the end."""
     _need_card()
     from adamml_tpu_torch.parallel import mesh
 
     cfg = flagship_cfg(tiny=True)
-    cfg.runtime.dist_url = mesh.free_local_url()
+    cfg.runtime.dist_url = mesh.file_url(tmp_path)
     got = mesh.init_distributed(cfg, "cuda:0", backend=request.param,
                                 timeout_s=60)
     try:

@@ -1,6 +1,7 @@
 """PyTorch port, multi-process data-parallel runs (parallel/mesh.py) on the
-CPU: two processes under gloo on 127.0.0.1, each a rank, against the
-port's single process on the same global batch.
+CPU: two processes under gloo, each a rank, meeting through a ``file://``
+rendezvous in the test's tmp_path, against the port's single process on
+the same global batch.
 
   * one main-phase and one policy-phase step of the tiny flagship, float32,
     real Gumbel and dropout noise, per-replica BN (against the single
@@ -15,7 +16,10 @@ port's single process on the same global batch.
     the policy and its selection rates;
   * checkpoints: rank 0 writes the one checkpoint, resuming it on two ranks
     gives both the saved state; and train_unimodal's
-    --multiprocessing-distributed spawning two CPU ranks.
+    --multiprocessing-distributed spawning two CPU ranks;
+  * the spawn path itself: each spawned rank joins with the parent's
+    timeout through a file rendezvous, and a logged line reaches a pipe
+    the ranks share in one write.
 
 Every child runs torch on one thread and joins its group with a 60 s
 timeout; every test waits for its children with a timeout and kills them
@@ -33,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from adamml_tpu_torch.parallel.mesh import free_local_url
+from adamml_tpu_torch.parallel.mesh import file_url
+from adamml_tpu_torch.utils.logging import RankZeroLogger
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 240
@@ -280,7 +285,7 @@ def _launch(tmp_path, task, world=2, worker=_WORKER, timeout_s=TIMEOUT_S,
     """Run ``task`` of ``worker`` on ``world`` ranks; returns each rank's
     RESULT dict. Any rank that fails or outlives ``timeout_s`` fails the
     test; every child is killed on the way out."""
-    url = free_local_url()
+    url = file_url(tmp_path)
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     # stdout apart from stderr: the C++ side's warnings on stderr can land
     # in the middle of a line printed to a shared pipe
@@ -449,3 +454,86 @@ def test_cli_spawns_ranks_on_the_cpu(tmp_path):
     val = [ln for ln in out.splitlines() if ln.startswith("Val: ")]
     assert len(val) == 1
     assert f"[rank 1] {val[0]}" in out.splitlines()
+
+
+# a module the spawned ranks import (spawn pickles ``run`` by name): each
+# rank joins the group and reports what it runs with
+_PROBE = r'''
+import json, sys
+import torch.distributed as dist
+from adamml_tpu_torch.parallel import mesh
+
+
+def run(cfg, device, backend=None):
+    got = mesh.init_distributed(cfg, device, backend)
+    store = dist.distributed_c10d._get_default_store()
+    line = json.dumps({"rank": got.rank, "world": got.world,
+                       "default_timeout_s": mesh.DEFAULT_TIMEOUT_S,
+                       "store_timeout_s": store.timeout.total_seconds(),
+                       "url": cfg.runtime.dist_url})
+    sys.stdout.write(f"RESULT {line}\n")
+    sys.stdout.flush()
+    mesh.shutdown()
+    return 0
+'''
+
+
+def test_spawned_ranks_get_the_parents_timeout(tmp_path):
+    """``mesh.launch`` with spawn on one node: the parent sets a 60 s
+    timeout, and every spawned rank runs with it (the module default and
+    the process group's store, 60 s, where the default is 600 s); the
+    ranks meet through a ``file://`` rendezvous, not a port picked and
+    released by the parent."""
+    (tmp_path / "rank_probe.py").write_text(_PROBE)
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from adamml_tpu_torch.configs.config import ExperimentConfig; "
+            "from adamml_tpu_torch.parallel import mesh; "
+            "import rank_probe; "
+            "mesh.DEFAULT_TIMEOUT_S = 60.0; "
+            "sys.exit(mesh.launch(rank_probe.run, ExperimentConfig(), "
+            "['cpu', 'cpu'], 'gloo', spawn=True))")
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([REPO, str(tmp_path)])}
+    p = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        out, err = p.communicate(timeout=TIMEOUT_S)
+    finally:
+        p.kill()
+        p.wait()
+    assert p.returncode == 0, (out + err)[-4000:]
+    got = sorted((json.loads(ln[len("RESULT "):]) for ln in
+                  out.splitlines() if ln.startswith("RESULT ")),
+                 key=lambda r: r["rank"])
+    assert [(r["rank"], r["world"]) for r in got] == [(0, 2), (1, 2)], out
+    for r in got:
+        assert r["default_timeout_s"] == r["store_timeout_s"] == 60.0, r
+        assert r["url"].startswith("file://"), r
+
+
+class _Writes:
+    """A stdout that records each write call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def write(self, text):
+        self.calls.append(text)
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_logged_line_is_one_write(rank, monkeypatch):
+    """A logged line and its newline go to stdout in one write call.
+    ``print`` makes two under ``python -u`` or PYTHONUNBUFFERED, and the
+    spawned ranks of test_cli_spawns_ranks_on_the_cpu, sharing the
+    parent's pipe, then spliced a rank's Val line onto another's."""
+    out = _Writes()
+    monkeypatch.setattr(sys, "stdout", out)
+    RankZeroLogger("", rank=rank).log("Val: x", every_rank=True)
+    want = "Val: x\n" if rank == 0 else "[rank 1] Val: x\n"
+    assert out.calls == [want]

@@ -250,10 +250,10 @@ def test_bn_groups_at_world_size_2(sync_bn):
 
 
 @pytest.fixture
-def group_of_one():
+def group_of_one(tmp_path):
     """A gloo process group of one in this process, left at the end."""
     cfg = flagship_cfg(tiny=True)
-    cfg.runtime.dist_url = mesh.free_local_url()
+    cfg.runtime.dist_url = mesh.file_url(tmp_path)
     got = mesh.init_distributed(cfg, "cpu", timeout_s=30)
     try:
         yield got
