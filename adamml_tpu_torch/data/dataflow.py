@@ -24,6 +24,7 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiling import counted
 from .aug_params import oversample_crop_flip, sample_crop_flip
 
 
@@ -213,7 +214,10 @@ class HostDataLoader:
                         return
                     samples = list(pool.map(self._fetch,
                                             [int(i) for i in idxs]))
-                    out_q.put(self._collate(samples, rng))
+                    # a count and seconds a batch (utils/profiling.py)
+                    with counted("data.collate"):
+                        batch = self._collate(samples, rng)
+                    out_q.put(batch)
                 out_q.put(None)
             except BaseException as e:  # surface worker errors to consumer
                 out_q.put(e)

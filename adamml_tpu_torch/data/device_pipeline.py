@@ -26,6 +26,7 @@ from ..configs.config import modality_mean, modality_std
 from ..models.model_builder import compute_dtype
 from ..ops.augment import crop_resize_normalize, rgbdiff_from_frames
 from ..ops.spectrogram import SpectrogramConfig, log_power_spectrogram
+from ..utils.profiling import span
 
 
 def _mean_std(modality: str, skip: bool, mean_override, std_override,
@@ -40,11 +41,13 @@ def _mean_std(modality: str, skip: bool, mean_override, std_override,
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: through pinned memory with a
-    non-blocking copy to a card, as it is on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    non-blocking copy to a card, as it is on the CPU. Runs in the span
+    ``data.h2d`` (utils/profiling.py)."""
+    with span("data.h2d"):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type != "cuda":
+            return t
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 def make_batch_preprocessor(cfg, *, train: bool, num_segments: int,

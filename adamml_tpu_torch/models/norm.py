@@ -25,6 +25,10 @@ differentiable all-reduce (equal local batches, so that is the global
 sum over the global count), and the running update counts the global
 rows. At world size 1 the average is x / 1, the same bits as without it.
 
+In train mode the forward runs in the span ``model.bn``
+(utils/profiling.py), which, while a CUDA graph is captured, also spans
+its backward: BN's device time in the replayed graph is labelled.
+
 Parameter and buffer names follow torch (weight, bias, running_mean,
 running_var); ckpt/flax_convert.py maps flax's scale/bias/mean/var onto them.
 """
@@ -35,6 +39,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import all_reduce_mean, data_world
+from ..utils.profiling import spanned
 
 EPSILON = 1e-5  # every BN of the JAX models (adamml_tpu/models/norm.py:39)
 MOMENTUM = 0.9  # adamml_tpu/models/norm.py:38
@@ -65,7 +70,11 @@ class GroupedBatchNorm(nn.Module):
             # cast, where (x - mean) * rsqrt(var + eps) * scale + bias would
             # take five float32 passes over the activation in eager mode
             return torch.addcmul(b, x, a).to(self.dtype)
+        return spanned("model.bn", self._train, x, return_affine,
+                       seq_groups, seq_inner)
 
+    def _train(self, x: torch.Tensor, return_affine: bool, seq_groups: int,
+               seq_inner: int):
         n, c = x.shape[0], x.shape[-1]
         r, sq, si = max(1, self.groups), max(1, seq_groups), max(1, seq_inner)
         if not (r * sq > 1 and n % (r * sq * si) == 0):

@@ -7,7 +7,10 @@ functional, so a recomputed BatchNorm cannot update its statistics twice;
 here the running statistics are buffers updated in place, so every
 GroupedBatchNorm inside ``module`` skips its update while the forward is
 recomputed. The regions this wraps draw no random numbers, so the global
-generator's state is not saved.
+generator's state is not saved. The recomputed forward runs in the span
+``model.remat`` (utils/profiling.py): in a captured graph its kernels are
+not put down to a span of the backward that asked for it, and its BNs
+count under their own spans.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .norm import GroupedBatchNorm
 
 
@@ -34,7 +38,8 @@ def remat(module: nn.Module, fn: Callable, *args):
         for bn in bns:
             bn.update_stats = False
         try:
-            return fn(*a)
+            with span("model.remat"):
+                return fn(*a)
         finally:
             for bn in bns:
                 bn.update_stats = True

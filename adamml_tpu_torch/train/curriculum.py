@@ -294,7 +294,9 @@ class AdaMMLTrainer:
         sub = self._next_seed()
         profiler = None
         if self.cfg.runtime.profile_dir and epoch == 0 and self.rank == 0:
-            profiler = StepProfiler(self.cfg.runtime.profile_dir)
+            profiler = StepProfiler(
+                self.cfg.runtime.profile_dir,
+                steps_per_dispatch=self.cfg.optim.steps_per_dispatch)
         multi_fn = (self.multi_main if step_fn is self.step_main
                     else self.multi_policy)
         sched_epoch = epoch if lr_epoch is None else lr_epoch

@@ -31,6 +31,7 @@ from torch import nn
 from ..data.aug_params import OVERSAMPLE_CENTER
 from ..parallel.mesh import (GradAllReduce, average_metrics, backend_name,
                              bn_statistics, broadcast_tensors)
+from ..utils.profiling import capture_map, span
 from .losses import compute_policy_loss, cross_entropy
 from .optim import clip_by_global_norm, set_lr
 from .train_state import EvalState, StageFlags, TrainState
@@ -245,7 +246,11 @@ class _GraphedSteps:
 
     The kernel wrappers count a launch when they enqueue it, so their
     counts see a captured launch once and no replay (a device trace counts
-    the replayed kernels)."""
+    the replayed kernels). The capture records the graph's capture map
+    (utils/profiling.py: each kernel node's span, such as ``model.bn``),
+    kept as ``capture``; a dispatch that replays runs its host work in
+    two spans, ``step.stage`` (the copies and fills the graph reads) and
+    ``step.replay``."""
 
     def __init__(self, model: nn.Module, body: Callable, set_lrs: Callable,
                  single: Callable):
@@ -254,6 +259,7 @@ class _GraphedSteps:
         self.device = next(model.parameters()).device
         self.key = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture: Optional[dict] = None
         self.eager_dispatches = self.replays = 0
 
     def _key(self, state: TrainState, stacked_inputs, stacked_targets,
@@ -294,7 +300,7 @@ class _GraphedSteps:
             for gen in pair:
                 graph.register_generator_state(gen)
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph), capture_map(k) as spans:
                 metrics = [self.body(state, [x[s] for x in self.inputs],
                                      self.targets[s], self.temperature,
                                      self.cost_weights, *self.gens[s])
@@ -304,7 +310,7 @@ class _GraphedSteps:
         except Exception as e:
             raise RuntimeError(f"capturing {k} train steps as one CUDA "
                                f"graph failed: {e}") from e
-        self.graph = graph
+        self.graph, self.capture = graph, spans.result
 
     def __call__(self, state: TrainState,
                  stacked_inputs: Sequence[torch.Tensor],
@@ -324,18 +330,20 @@ class _GraphedSteps:
         if self.graph is None:
             self._capture(state, stacked_inputs, stacked_targets,
                           cost_weights)
-        for buf, x in zip(self.inputs, stacked_inputs):
-            buf.copy_(x, non_blocking=True)
-        self.targets.copy_(stacked_targets, non_blocking=True)
-        self.set_lrs(state, lr, p_lr)
-        self.temperature.fill_(float(state.temperature))
-        self.cost_weights.copy_(torch.as_tensor(cost_weights,
-                                                dtype=torch.float32))
-        for s, pair in enumerate(self.gens):
-            base = step_seed(seed, state.step + s)
-            for j, gen in enumerate(pair):
-                gen.manual_seed(step_seed(base, j))
-        self.graph.replay()
+        with span("step.stage"):
+            for buf, x in zip(self.inputs, stacked_inputs):
+                buf.copy_(x, non_blocking=True)
+            self.targets.copy_(stacked_targets, non_blocking=True)
+            self.set_lrs(state, lr, p_lr)
+            self.temperature.fill_(float(state.temperature))
+            self.cost_weights.copy_(torch.as_tensor(cost_weights,
+                                                    dtype=torch.float32))
+            for s, pair in enumerate(self.gens):
+                base = step_seed(seed, state.step + s)
+                for j, gen in enumerate(pair):
+                    gen.manual_seed(step_seed(base, j))
+        with span("step.replay"):
+            self.graph.replay()
         state.step += len(self.gens)
         self.replays += 1
         return {name: v.clone() for name, v in self.out.items()}

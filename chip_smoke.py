@@ -2108,8 +2108,9 @@ def _trace_kernel_counts(path: str) -> dict:
 def _cli_multi_run(card: str) -> dict:
     """train_adamml with --steps_per_dispatch 2 --eval_capacity 0.5
     --profile_dir: each training pass's first epoch writes a trace of
-    loader indices 2-4, which hold the first replay of K steps (its
-    kernels counted from the trace); the wrappers count the first
+    whole dispatches from loader index 2K on, after the one that captures
+    the graph: on 6 batches a pass, one replay of K steps (its kernels
+    counted from the trace); the wrappers count the first
     dispatch's launches (K single steps) and the capture's, none of the replays."""
     k = K_DISPATCH
     with tempfile.TemporaryDirectory() as tmp:

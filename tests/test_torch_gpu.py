@@ -1007,3 +1007,80 @@ def test_mem_analysis_main_phase_on_the_card():
     assert r["arguments"]["optimizer_state"] > 0
     assert r["launches"] == {ttp.KERNEL: 3, ttp.KERNEL_BWD: 3}
     assert len(r["top_blocks"]) == mem_analysis.TOP
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_capture_map_labels_the_replayed_kernels(phase, tmp_path,
+                                                 monkeypatch):
+    """The tiny config's K = 2 graph, captured with its capture map
+    (utils/profiling.py): the map holds as many kernel nodes as the same
+    steps captured without spans, with the same names; a replay in a
+    profiler trace runs those kernels one to one in the map's order
+    (a copy node the driver runs as a kernel passed over); every kernel
+    labelled ``model.bn`` falls in the elementwise, reduction or matmul
+    classes (the running statistics' fold is a small matmul); and a replay
+    stays bit-equal to K single steps (``_replay_vs_single_steps``, with the
+    map in)."""
+    _need_card()
+    from benchmark import spans
+    from benchmark.trace import STRETCH, Trace, kernel_class
+    from adamml_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _replay_vs_single_steps(phase, use_pallas_dw=False)
+    cfg = flagship_cfg(tiny=True)
+    model, _ = build_model(cfg)
+    state = TrainState(
+        build_optimizer("main", cfg.optim, model.main_net.parameters()),
+        build_optimizer("policy", cfg.optim, model.policy_net.parameters()))
+    multi = make_adamml_multi_step(
+        model, flags=(StageFlags.main_phase() if phase == "main"
+                      else StageFlags.policy_phase()),
+        penalty_type="blockdrop", gammas=10.0, clip_gradient=None)
+
+    def batches(seed):
+        xs = [example_inputs(cfg, batch=4, seed=seed + i) for i in range(2)]
+        return ([torch.stack([x[m] for x in xs]) for m in range(2)],
+                torch.arange(8, device="cuda").reshape(2, 4) % 5)
+
+    args = (1e-3, 1e-2, [1.0, 0.05])
+    multi(state, *batches(10), *args, 3)
+    multi(state, *batches(20), *args, 4)
+    cmap = multi.capture
+    assert profiling.CAPTURES[-1] is cmap and cmap["k"] == 2
+    assert "model.bn" in cmap["labels"]
+    assert len(cmap["labels"]) == len(cmap["names"]) == cmap["kernels"]
+
+    plain = torch.cuda.CUDAGraph()
+    for pair in multi.gens:
+        for gen in pair:
+            plain.register_generator_state(gen)
+    with torch.cuda.graph(plain):
+        ms = [multi.body(state, [x[s] for x in multi.inputs],
+                         multi.targets[s], multi.temperature,
+                         multi.cost_weights, *multi.gens[s])
+              for s in range(2)]
+        _ = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+        _, kinds, names = profiling.captured_nodes()
+    del plain
+    assert kinds.count(profiling.KERNEL_NODE) == cmap["kernels"]
+    assert names == cmap["names"]
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(STRETCH):
+            multi(state, *batches(30), *args, 5)
+            torch.cuda.synchronize()
+    path = str(tmp_path / "replay.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = Trace(json.load(f)["traceEvents"], 2, 2)
+    got = spans.labelled_replays(trace)
+    assert got is not None and len(got) == 1
+    assert len(got[0]) == cmap["kernels"]
+    bn = [e["name"] for e, label in got[0] if label == "model.bn"]
+    assert bn
+    assert {kernel_class(n) for n in bn} <= {"elementwise", "reduction",
+                                             "matmul"}

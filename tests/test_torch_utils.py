@@ -165,18 +165,24 @@ def test_show_model_prints_flops(cli, capsys, tmp_path):
 
 def test_adamml_cli_with_multi_step_capacity_and_profile(tmp_path, capsys):
     """The tiny curriculum through the CLI with --steps_per_dispatch 2
-    (3 batches a pass: one dispatch of 2 and a single step),
+    (5 batches a pass: two dispatches of 2 and a single step),
     --eval_capacity 0.5 and --profile_dir: every stage runs, the
     validations report their epochs, and each pass's first epoch writes a
-    trace (steps 2-4, the single tail step)."""
+    trace from loader index 4 on, after the dispatch that captures the
+    graph on a card (here the single tail step), with its counters and
+    capture maps beside it."""
     traces = tmp_path / "traces"
-    argv = TINY + ["--synthetic_length", "24", "--steps_per_dispatch", "2",
+    argv = TINY + ["--synthetic_length", "40", "--steps_per_dispatch", "2",
                    "--eval_capacity", "0.5", "--profile_dir", str(traces),
                    "--logdir", str(tmp_path / "logs")]
     assert tcli.main(argv, device="cpu") == 0
     files = glob.glob(str(traces / "*.pt.trace.json"))
     # warmup, alternating main, alternating policy, finetune
     assert len(files) == 4
+    assert all(os.path.basename(f).startswith("steps_4-8_") for f in files)
+    for f in files:
+        with open(f.replace(".pt.trace.json", ".spans.json")) as g:
+            assert json.load(g)["counters"]["data.collate"]["count"]
     log = glob.glob(str(tmp_path / "logs" / "*" / "log.log"))
     with open(log[0]) as f:
         text = f.read()
