@@ -16,7 +16,10 @@ statistics see replica group 0's moments only, with the unbiased variance
 (count / (count - 1)), folded over the S segments in order as S
 consecutive BN forwards would: ra <- m^S ra + sum_i (1-m) m^(S-1-i) moment_i,
 m = 0.9. They move once per forward: ``update_stats`` is False while a
-checkpointed forward is recomputed (models/remat.py).
+checkpointed forward is recomputed (models/remat.py). The forward and its
+backward are one autograd function (ops/kernels/bn_train.py): CUDA kernels
+on the card, which keep x in its own dtype for the backward, and their
+plain PyTorch versions on the CPU.
 
 ``sync`` (set by the model builder for --sync-bn in a process group,
 parallel/mesh.py) takes the moments over every data shard's rows: the
@@ -38,6 +41,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.kernels import bn_train
 from ..parallel.mesh import all_reduce_mean, data_world
 from ..utils.profiling import spanned
 
@@ -73,41 +77,25 @@ class GroupedBatchNorm(nn.Module):
         return spanned("model.bn", self._train, x, return_affine,
                        seq_groups, seq_inner)
 
-    def _train(self, x: torch.Tensor, return_affine: bool, seq_groups: int,
-               seq_inner: int):
-        n, c = x.shape[0], x.shape[-1]
+    def geometry(self, x: torch.Tensor, seq_groups: int = 1,
+                 seq_inner: int = 1) -> bn_train.Geom:
+        """The moment groups of a train-mode forward of x."""
+        n = x.shape[0]
         r, sq, si = max(1, self.groups), max(1, seq_groups), max(1, seq_inner)
         if not (r * sq > 1 and n % (r * sq * si) == 0):
             r = sq = si = 1  # global moments
-        gshape = (r, n // (r * sq * si), sq, si) + tuple(x.shape[1:])
-        red = (1, 3) + tuple(range(4, len(gshape) - 1))
-        xf = x.float().reshape(gshape)
-        mean = xf.mean(red)                                  # (R, S, C)
-        meansq = (xf * xf).mean(red)
-        count = x.numel() // (r * sq * c)
-        if self.sync:
-            mean, meansq = all_reduce_mean(torch.stack([mean, meansq]))
-            count *= data_world()[0]
-        var = meansq - mean * mean
-        if self.update_stats:
-            self._update_running(mean[0], var[0], count)
-        a = self.weight * torch.rsqrt(var + EPSILON)
-        b = self.bias - mean * a
-        if return_affine:
-            return a, b
-        bshape = (r, 1, sq, 1) + (1,) * (len(gshape) - 5) + (c,)
-        y = torch.addcmul(b.reshape(bshape), x.reshape(gshape),
-                          a.reshape(bshape))
-        return y.reshape(x.shape).to(self.dtype)
+        return bn_train.geometry(x.shape, r, sq, si)
 
-    @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
-                        count: int) -> None:
-        """Fold the (S, C) moment sets into the running statistics."""
-        m, s = MOMENTUM, mean.shape[0]
-        if count > 1:
-            var = var * (count / (count - 1))
-        w = (1.0 - m) * torch.pow(m, torch.arange(
-            s - 1, -1, -1, dtype=torch.float32, device=mean.device))
-        self.running_mean.mul_(m ** s).add_(w @ mean)
-        self.running_var.mul_(m ** s).add_(w @ var)
+    def _train(self, x: torch.Tensor, return_affine: bool, seq_groups: int,
+               seq_inner: int):
+        geom = self.geometry(x, seq_groups, seq_inner)
+        count = geom.count
+        if self.sync:
+            count *= data_world()[0]
+        out = bn_train.grouped_bn_train(
+            x, self.weight, self.bias,
+            (self.running_mean, self.running_var) if self.update_stats
+            else None, geom, count / (count - 1) if count > 1 else 1.0,
+            MOMENTUM, EPSILON, all_reduce_mean if self.sync else None,
+            return_affine)
+        return out if return_affine else out.to(self.dtype)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles into its
 own shared library for sm_90a, at first use, into ``adamml_tpu_torch/_build``
 (listed in .gitignore). The file name carries a hash of the source and the
 flags, so an edited source is rebuilt. ``build`` starts one nvcc per
-missing library, all at once, and waits for every one. A missing nvcc or a
+missing library, all at once, and waits for every one; the first use of any
+library builds every missing one so. A missing nvcc or a
 failed compile raises with the compiler's output; there is no fallback.
 """
 
@@ -117,11 +118,19 @@ def build(names: Iterable[str]) -> None:
         raise RuntimeError("\n".join(failures))
 
 
+def sources() -> List[str]:
+    """The names of every ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``. When it is missing, every
+    missing library is built, in one round: a train step's first BN call
+    then builds the epilogue kernels it launches next as well."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        if not library_path(name).exists():
+            build(sources())
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -30,6 +30,14 @@ Phases, each printing one JSON line (or several):
               against its full-C launch
               (bit for bit, da and db too), and a CUDA graph of the
               backward alone, replayed, against an eager call;
+  bn_kernel   train-mode BN's six kernels (ops/kernels/bn_train.py) at
+              every distinct BN call of one flagship main-phase step at
+              18 clips, each checked against its plain version on the
+              same tensors (largest error printed) and timed with CUDA
+              events (L2 zeroed) beside its byte bound and its plain
+              version's time, the per-step sums, ptxas' registers, and
+              the BN launches of one step checked against the step's BN
+              calls;
   serve       the flagship AdaMML eval step at full width (ResNet-50 +
               MobileNetV2 audio, rgb + sound, 5 segments x 8 frames,
               224x224, LSTM policy, learnable late fusion, bf16, 31
@@ -40,8 +48,9 @@ Phases, each printing one JSON line (or several):
   train       the flagship train step at full width, main phase (SGD on the
               main net) then policy phase (Adam on the policy net), 8 clips
               a step, 1 warm-up and 3 timed steps each; launch counts zeroed
-              just before each phase and read just after; checks on losses,
-              decisions, which parameters and statistics moved;
+              just before each phase and read just after, the BN kernels'
+              checked against the phase's train-mode BN calls; checks on
+              losses, decisions, which parameters and statistics moved;
   train_vs_plain  one main-phase step with fused_tpool=False on the same
               weights and batch: loss and updates against the fused step;
   serve_dw    the same eval step with use_pallas_dw=True: every 3x3
@@ -167,6 +176,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import inspect
 import io
 import json
 import math
@@ -190,7 +200,9 @@ from adamml_tpu_torch.data.video_dataset import VideoDataset
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.mobilenet_v2 import _DepthwiseConv
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
+from adamml_tpu_torch.models.norm import EPSILON, MOMENTUM, GroupedBatchNorm
 from adamml_tpu_torch.ops.augment import policy_stream
+from adamml_tpu_torch.ops.kernels import bn_train as tbn
 from adamml_tpu_torch.ops.kernels import build
 from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
@@ -215,7 +227,8 @@ from adamml_tpu_torch.utils.logging import RankZeroLogger
 
 # the train step's settings (bench.py:156-161)
 LR, P_LR, COST, GAMMAS = 1e-3, 1e-2, [1.0, 0.05], 10.0
-COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts)
+COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts,
+          tbn.launch_counts)
 # depthwise launches (forward, input gradient) of one flagship step with
 # use_pallas_dw=True: 17 layers in each of three MobileNetV2s; the main
 # phase adds the audio backbone's 13 stride-1 input gradients; the policy
@@ -341,6 +354,265 @@ def kernel_phase(dev) -> dict:
         del y, ident, got, want
     _kernel_channel_block(dev, gen)
     return res
+
+
+# the benchmark's flagship batch a card
+BN_BATCH = 18
+
+
+_BN_FORWARD = inspect.signature(GroupedBatchNorm.forward)
+
+
+def bn_call_hooks(model) -> tuple:
+    """Pre-hooks on every GroupedBatchNorm of ``model`` that count its
+    train-mode calls, as ({(geometry, return_affine, backward, input
+    gradient, sync): calls}, hooks). A forward recomputed under remat
+    (``update_stats`` off, models/remat.py) fills the first forward's saved
+    tensors and has no backward of its own."""
+    calls = Counter()
+
+    def record(mod, args, kwargs):
+        arg = _BN_FORWARD.bind(mod, *args, **kwargs)
+        arg.apply_defaults()
+        a = arg.arguments
+        if not a["train"]:
+            return
+        x = a["x"]
+        bwd = bool(mod.update_stats and torch.is_grad_enabled() and (
+            x.requires_grad or mod.weight.requires_grad))
+        calls[(mod.geometry(x, a["seq_groups"], a["seq_inner"]),
+               bool(a["return_affine"]), bwd, bwd and x.requires_grad,
+               bool(mod.sync))] += 1
+
+    hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
+             for m in model.modules() if isinstance(m, GroupedBatchNorm)]
+    return calls, hooks
+
+
+def bn_launches(calls) -> dict:
+    """The BN kernels' launches that ``calls`` (``bn_call_hooks``) make:
+    stats and finalize (twice under sync-BN) and, but with return_affine,
+    apply forward; grad sums (but with return_affine), grad finalize and,
+    where x takes a gradient, dx backward."""
+    out = dict.fromkeys(tbn.KERNELS, 0)
+    for (_, affine, bwd, dx, sync), k in calls.items():
+        out["bn_stats"] += k
+        out["bn_finalize"] += 2 * k if sync else k
+        out["bn_apply"] += 0 if affine else k
+        out["bn_grad_sums"] += k if bwd and not affine else 0
+        out["bn_grad_finalize"] += k if bwd else 0
+        out["bn_dx"] += k if dx else 0
+    return out
+
+
+def bn_counts(counts: dict) -> dict:
+    """The BN kernels' entries of a launch-count dict."""
+    return {k: counts[k] for k in tbn.KERNELS}
+
+
+def _bn_calls(dev, batch: int) -> tuple:
+    """Every train-mode BN call of one flagship main-phase step at ``batch``
+    clips (after a warm-up step), as ``bn_call_hooks`` counts them, and the
+    BN kernels' launches of that step, counts zeroed just before."""
+    cfg = flagship_cfg()
+    model, _ = build_model(cfg)
+    state = _train_state(model, cfg)
+    step = _make_step(model, "main")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    target = torch.randint(0, cfg.model.num_classes, (batch,), generator=gen,
+                           device=dev)
+    step(state, example_inputs(cfg, batch=batch, seed=300), target, LR,
+         P_LR, COST, seed=0)
+    inputs = example_inputs(cfg, batch=batch, seed=301)
+    calls, hooks = bn_call_hooks(model)
+    torch.cuda.synchronize()
+    zero_counts()
+    step(state, inputs, target, LR, P_LR, COST, seed=1)
+    torch.cuda.synchronize()
+    launches = bn_counts(all_counts())
+    for h in hooks:
+        h.remove()
+    del model, state, step
+    torch.cuda.empty_cache()
+    return calls, launches
+
+
+def bn_work(geom, itemsize: int, affine: bool, bwd: bool,
+            input_grad: bool) -> dict:
+    """The least bytes each BN pass moves: every element of x (and dy)
+    read once and of y (and dx) written once; 0 for the finalize kernels,
+    which read only the partials."""
+    n = geom.n * geom.p * geom.c * itemsize
+    work = {"bn_stats": n, "bn_finalize": 0}
+    if not affine:
+        work["bn_apply"] = 2 * n
+    if bwd:
+        if not affine:
+            work["bn_grad_sums"] = 2 * n
+        work["bn_grad_finalize"] = 0
+        if input_grad:
+            work["bn_dx"] = 2 * n if affine else 3 * n
+    return work
+
+
+BN_TOLERANCE = ("sums within 1e-5 of the sums of their terms' magnitudes; "
+                "finalize outputs within 1e-5 of each output's largest "
+                "entry; y and dx within 1 bf16 ulp or 1e-6 of their terms' "
+                "magnitudes (tests/test_torch_gpu.py::"
+                "test_cuda_bn_kernels_match_plain)")
+
+
+def bn_check(geom, x, dy, w, bias, affine: bool) -> tuple:
+    """Each BN kernel against its plain version on the same card tensors,
+    in the card test's tolerances (BN_TOLERANCE); the finalize kernels on
+    the stats pass's sums (and, with ``affine``, (a, b) standing for the
+    epilogue's gradients), dx without its dy term with ``affine``.
+    Returns ({kernel: largest absolute error}, the kernels' (sums, mom,
+    a, b, gsums, coef) for the timed calls)."""
+    errs = {}
+
+    def within(name, got, want, bound, ulp=False):
+        err = (got.float() - want.float()).abs()
+        tol = torch.maximum(bf16_ulp(want), bound) if ulp else bound
+        over = float((err - tol).max())
+        check(over <= 0, f"{name} at {geom} (return_affine={affine}) "
+              f"differs from its plain version by {over} past its tolerance")
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+
+    ulp = x.dtype == torch.bfloat16
+    xf, dyf = x.float(), dy.float()
+    part = tbn.stats(x, geom)
+    within("bn_stats", part.sum(1), tbn.plain_stats(x, geom)[:, 0],
+           1e-5 * tbn.plain_stats(xf.abs(), geom)[:, 0])
+    sums = tbn.slab_views(part)
+    args = (geom.count / (geom.count - 1), MOMENTUM, EPSILON,
+            tbn.MOMENTS | tbn.AFFINE)
+    run_k = (torch.zeros(geom.c, device=x.device),
+             torch.ones(geom.c, device=x.device))
+    run_p = tuple(t.clone() for t in run_k)
+    got = tbn.finalize(sums, None, w, bias, run_k, geom, *args)
+    want = tbn.plain_finalize(sums, None, w, bias, run_p, geom, *args)
+    for g, v in zip(got + run_k, want + run_p):
+        within("bn_finalize", g, v, 1e-5 * float(v.abs().max()))
+    mom, a, b = got
+    if affine:
+        gsums = tuple(t.reshape(geom.g, 1, geom.c) for t in (a, b))
+    else:
+        within("bn_apply", tbn.apply(x, a, b, geom),
+               tbn.plain_apply(x, a, b, geom),
+               1e-6 * tbn.plain_apply(xf.abs(), a.abs(), b.abs(), geom),
+               ulp)
+        gpart = tbn.grad_sums(dy, x, geom)
+        within("bn_grad_sums", gpart.sum(1),
+               tbn.plain_grad_sums(dy, x, geom)[:, 0],
+               1e-5 * tbn.plain_grad_sums(dyf.abs(), xf.abs(), geom)[:, 0])
+        gsums = tbn.slab_views(gpart)
+    got = tbn.grad_finalize(gsums, mom, w, geom, EPSILON)
+    want = tbn.plain_grad_finalize(gsums, mom, w, geom, EPSILON)
+    for g, v in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        within("bn_grad_finalize", g, v, 1e-5 * float(v.abs().max()))
+    coef = got[2]
+    d, df = (None, None) if affine else (dy, dyf.abs())
+    within("bn_dx", tbn.dx(d, x, coef, geom), tbn.plain_dx(d, x, coef, geom),
+           1e-6 * tbn.plain_dx(df, xf.abs(), coef.abs(), geom).float(), ulp)
+    return errs, (sums, mom, a, b, gsums, coef)
+
+
+def bn_kernel_phase(dev) -> dict:
+    """The six BN kernels at every distinct train-mode BN call of one
+    flagship main-phase step (18 clips), each first checked against its
+    plain version (``bn_check``) and then timed with CUDA events (L2
+    zeroed between launches) beside its byte bound and its plain version's
+    time; per-step sums weighted by the calls; and the BN kernels'
+    launches of one step, checked against its calls."""
+    calls, launches = _bn_calls(dev, BN_BATCH)
+    want = bn_launches(calls)
+    check(launches == want, f"one main-phase step launched the BN kernels "
+          f"{launches}, expected {want}")
+    emit("bn_launches", step="main", batch_clips=BN_BATCH, launches=launches,
+         bn_calls=sum(calls.values()),
+         with_backward=sum(k for key, k in calls.items() if key[2]),
+         return_affine=sum(k for key, k in calls.items() if key[1]))
+    flush = l2_flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+               "max_abs_err": 0.0} for k in tbn.KERNELS}
+    for (geom, affine, bwd, input_grad, _), k in sorted(
+            calls.items(), key=lambda kv: -kv[0][0].n * kv[0][0].p
+            * kv[0][0].c):
+        shape = (geom.n, geom.p, geom.c)
+        x = (0.5 + torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        w = 1 + 0.2 * torch.randn(geom.c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(geom.c, generator=gen, device=dev)
+        run = (torch.zeros(geom.c, device=dev), torch.ones(geom.c,
+                                                           device=dev))
+        args = (geom.count / (geom.count - 1), MOMENTUM, EPSILON,
+                tbn.MOMENTS | tbn.AFFINE)
+        errs, (sums, mom, a, b, gsums, coef) = bn_check(geom, x, dy, w, bias,
+                                                       affine)
+        d = None if affine else dy
+        psums = tbn.slab_views(tbn.plain_stats(x, geom))
+        pgsums = (tbn.slab_views(tbn.plain_grad_sums(dy, x, geom))
+                  if not affine else gsums)
+        fns = {
+            "bn_stats": (lambda: tbn.stats(x, geom),
+                         lambda: tbn.plain_stats(x, geom)),
+            "bn_finalize": (
+                lambda: tbn.finalize(sums, None, w, bias, run, geom, *args),
+                lambda: tbn.plain_finalize(psums, None, w, bias, run, geom,
+                                           *args)),
+            "bn_apply": (lambda: tbn.apply(x, a, b, geom),
+                         lambda: tbn.plain_apply(x, a, b, geom)),
+            "bn_grad_sums": (lambda: tbn.grad_sums(dy, x, geom),
+                             lambda: tbn.plain_grad_sums(dy, x, geom)),
+            "bn_grad_finalize": (
+                lambda: tbn.grad_finalize(gsums, mom, w, geom, EPSILON),
+                lambda: tbn.plain_grad_finalize(pgsums, mom, w, geom,
+                                                EPSILON)),
+            "bn_dx": (lambda: tbn.dx(d, x, coef, geom),
+                      lambda: tbn.plain_dx(d, x, coef, geom)),
+        }
+        pl = tbn.plan(geom, tbn.vec_width(geom.c, 2),
+                      torch.cuda.get_device_properties(
+                          dev).multi_processor_count)
+        line = dict(shape=list(shape), R=geom.r, S=geom.s, si=geom.si,
+                    return_affine=affine, backward=bwd, calls=k,
+                    plan={q: pl[q] for q in ("vec", "tcg", "lanes", "ns", "k",
+                                             "slab", "blocks",
+                                             "partials_bytes")})
+        for name, nbytes in bn_work(geom, 2, affine, bwd, input_grad).items():
+            kern, plain = fns[name]
+            k_ms = event_ms(kern, flush=flush)
+            p_ms = event_ms(plain, iters=5, warmup=1, flush=flush)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            line[name] = dict(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              share_of_bound=b_ms / k_ms if b_ms else None,
+                              max_abs_err=errs[name])
+            tot[name]["ms"] += k * k_ms
+            tot[name]["plain_ms"] += k * p_ms
+            tot[name]["bound_ms"] += k * b_ms
+            tot[name]["launches"] += k
+            tot[name]["max_abs_err"] = max(tot[name]["max_abs_err"],
+                                           errs[name])
+        emit("bn_kernel", **line, tolerance=BN_TOLERANCE)
+        del x, dy, sums, mom, a, b, gsums, coef, psums, pgsums, fns
+    for t in tot.values():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"] if t["ms"] else None
+    step_ms = sum(t["ms"] for t in tot.values())
+    bound = sum(t["bound_ms"] for t in tot.values())
+    plain = sum(t["plain_ms"] for t in tot.values())
+    errs = {k: t["max_abs_err"] for k, t in tot.items()}
+    emit("bn_kernel_sum", batch_clips=BN_BATCH, per_kernel=tot,
+         ms_per_step=step_ms, bound_ms_per_step=bound,
+         plain_ms_per_step=plain, share_of_bound=bound / step_ms,
+         ptxas=build.ptxas_entries(tbn.SOURCE),
+         timing="CUDA events, mean of 20 after 3 warm-up (plain: 5 after "
+                "1), L2 zeroed between launches, bf16; sums weighted by "
+                "the calls of one main-phase step")
+    return dict(tot, ms=step_ms, bound_ms=bound, plain_ms=plain,
+                launches=launches, max_abs_err=errs)
 
 
 def _block(t, lo, hi):
@@ -792,10 +1064,17 @@ def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
         want_bwd = 3 if phase == "main" else 0
         want_dw = DW_STEP[phase] if use_pallas_dw else (0, 0)
         start = _snapshot(model)
+        # what this phase holds beyond one step's batch, which a single
+        # step (tools/mem_analysis.py) does not: the other batches and the
+        # snapshot
+        held = sum(t.numel() * t.element_size() for t in start.values()) + \
+            sum(t.numel() * t.element_size() for inputs, target in
+                batches[1:] for t in list(inputs) + [target])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         # this path: counts zeroed just before, read just after
         zero_counts()
+        bn_calls, bn_hooks = bn_call_hooks(model)
         latencies, losses = [], []
         for i, (inputs, target) in enumerate(batches):
             before = all_counts()
@@ -821,6 +1100,12 @@ def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
             if i:  # step 0 is the warm-up
                 latencies.append(dt)
         launches = all_counts()
+        for h in bn_hooks:
+            h.remove()
+        check(bn_counts(launches) == bn_launches(bn_calls),
+              f"{phase}: {len(batches)} steps launched the BN kernels "
+              f"{bn_counts(launches)}, their train-mode BN calls "
+              f"{bn_launches(bn_calls)}")
         peak = torch.cuda.max_memory_allocated(dev)
         end = _snapshot(model)
         params = dict(model.named_parameters())
@@ -850,13 +1135,15 @@ def train_phase(dev, card: str, use_pallas_dw: bool = False) -> dict:
              steps=len(latencies), warmup=1,
              latency_ms=[x * 1e3 for x in latencies],
              clips_per_s=[batch / x for x in latencies],
-             max_memory_allocated_bytes=peak, launches=launches,
+             max_memory_allocated_bytes=peak, held_besides_batch_bytes=held,
+             launches=launches, bn_calls=sum(bn_calls.values()),
              losses=losses, moved=moved,
              selection_rate=float(torch.stack(seen[-4:]).mean()),
              timing="host clock around each step, ending in "
                     "torch.cuda.synchronize()")
         out[phase] = launches
         out.setdefault("peak", {})[phase] = peak
+        out.setdefault("held", {})[phase] = held
     hook.remove()
     del model, state, batches, seen
     torch.cuda.empty_cache()
@@ -1816,8 +2103,9 @@ def update_mem_phase(dev, card: str, train_peak: int) -> dict:
     agreement: bit for bit, or within 1e-6 of each tensor's largest value.
     (b) mem_analysis at batch 8 in both phases with --fused_tpool 1 and 0:
     the epilogue's launches in the measured step (MEM_LAUNCHES), a peak
-    above the arguments, and the main phase's fused peak within 5% of the
-    peak train_phase read around the same step. (c) mem_analysis at the JAX
+    above the arguments, and the main phase's fused peak within 5% of
+    ``train_peak``: the peak train_phase read around the same step, less
+    what that phase held besides one step's batch. (c) mem_analysis at the JAX
     tool's default, batch 24 in the policy phase. Counts zeroed before (b)
     and read after (c)."""
     t0 = time.perf_counter()
@@ -1849,7 +2137,8 @@ def update_mem_phase(dev, card: str, train_peak: int) -> dict:
     peak = runs["main", 1]["peak_bytes"]
     check(abs(peak - train_peak) <= 0.05 * train_peak,
           f"mem_analysis main-phase peak {peak} not within 5% of "
-          f"train_phase's {train_peak}")
+          f"train_phase's {train_peak} (its peak less what it held "
+          f"besides one step's batch)")
     emit("update_mem", case="main_peak_vs_train", mem_analysis=peak,
          train=train_peak, ratio=peak / train_peak,
          fused_off_minus_on={p: runs[p, 0]["peak_bytes"]
@@ -3400,7 +3689,7 @@ def main() -> int:
     emit("device", kind=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [tp.KERNEL, tp.KERNEL_BWD, dwk.KERNEL, tpp.KERNEL]
+    kernels = [tp.KERNEL, tp.KERNEL_BWD, dwk.KERNEL, tpp.KERNEL, tbn.SOURCE]
     t0 = time.perf_counter()
     build.build(kernels)
     ptxas = {k: [ln.strip() for ln in build.build_log(k).splitlines()
@@ -3410,6 +3699,7 @@ def main() -> int:
     one_kernel_phase(dev)
     kres = kernel_phase(dev)
     bres = kernel_bwd_phase(dev)
+    bnres = bn_kernel_phase(dev)
     sres = serve_phase(dev, smi)
     tres = train_phase(dev, smi)
     train_vs_plain_phase(dev)
@@ -3431,7 +3721,8 @@ def main() -> int:
     tiny_reference_phase(dev, use_pallas_dw=True)
     tiny_train_phase(dev, use_pallas_dw=True)
     ores = tools_phase(dev)
-    ures = update_mem_phase(dev, smi, tres["peak"]["main"])
+    ures = update_mem_phase(dev, smi,
+                            tres["peak"]["main"] - tres["held"]["main"])
     preprocess_phase(dev)
     cres = cli_phase(dev, smi)
     rres = real_data_phase(dev, smi)
@@ -3588,7 +3879,46 @@ def main() -> int:
         "launches_by_path": {"tools": ores["launches"][tpp.KERNEL]},
         "note": "ms, plain_ms and bound_ms are sums over bench_tpool's "
                 "three stage shapes at batch 8; launches are the tools "
-                "path's (timing runs included)"}]}), flush=True)
+                "path's (timing runs included)"}, {
+        "name": tbn.SOURCE, "route": "cuda",
+        "source": "adamml_tpu_torch/csrc/bn_train.cu",
+        "replaces": None,
+        "kernels": list(tbn.KERNELS),
+        "launches": bnres["launches"],
+        "max_abs_err": bnres["max_abs_err"],
+        "tolerance": BN_TOLERANCE,
+        "ms": bnres["ms"], "plain_ms": bnres["plain_ms"],
+        "bound_ms": bnres["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": {
+            "serve": bn_counts(sres["launches"]),
+            "train_main": bn_counts(tres["main"]),
+            "train_policy": bn_counts(tres["policy"]),
+            "train_dw_main": bn_counts(tdw["main"]),
+            "train_dw_policy": bn_counts(tdw["policy"]),
+            "cli_train_adamml": bn_counts(cres["train_adamml"]),
+            "cli_train_adamml_evaluate":
+                bn_counts(cres["train_adamml_evaluate"]),
+            "cli_train_unimodal": bn_counts(cres["train_unimodal"]),
+            "real_data_train_unimodal_rgb":
+                bn_counts(rres["train_unimodal_rgb"]),
+            "real_data_train_adamml": bn_counts(rres["train_adamml"]),
+            "multi_step_main_capture": bn_counts(mres["main"]["capture"]),
+            "multi_step_policy_capture":
+                bn_counts(mres["policy"]["capture"]),
+            "cli_train_adamml_multi": bn_counts(cres["train_adamml_multi"]),
+            "multi_process_nccl_world1": bn_counts(pres["nccl"]["launches"]),
+            "tensor_parallel_1x2_steps_per_rank": [
+                bn_counts(c) for c in tpres["steps"]["launches"]],
+            "update_mem_mem_analysis": bn_counts(ures["launches"])},
+        "note": "no Pallas kernel: the JAX package leaves train-mode BN "
+                "to XLA; ms, plain_ms and bound_ms are sums over the BN "
+                "calls of one 18-clip flagship main-phase step (the "
+                "finalize kernels count no bound bytes); launches are "
+                "that step's; max_abs_err is each kernel's largest over "
+                "those calls' shapes (sums' errors scale with the sums); "
+                "the train paths' launches are checked against their "
+                "train-mode BN calls"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -22,6 +22,7 @@ so it also runs on a machine that has only PyTorch:
 """
 
 import json
+import re
 import time
 
 import numpy as np
@@ -35,9 +36,11 @@ from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.ops.augment import policy_stream
+from adamml_tpu_torch.ops.kernels import bn_train as tbn
 from adamml_tpu_torch.ops.kernels import depthwise as tdw
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
+from adamml_tpu_torch.tools.timing import bf16_ulp
 from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
@@ -269,6 +272,218 @@ def test_cuda_bwd_build_spills_nothing():
     for e in entries:
         assert e["spill_stores"] == e["spill_loads"] == 0, e
         assert e["registers"] <= 128, e
+
+
+# train-mode BN (ops/kernels/bn_train.py) at flagship's shapes (18 clips x
+# 5 segments x 8 frames: the ResNet-50 stem, layer 1 and layer 4) and an
+# odd C over two replica groups: (x shape, R, S, seq_inner)
+BN_SHAPES = {
+    "stem": ((720, 56, 56, 64), 1, 5, 8),
+    "layer1": ((720, 56, 56, 256), 1, 5, 8),
+    "layer4": ((90, 7, 7, 2048), 1, 5, 1),
+    "odd_C": ((40, 9, 9, 37), 2, 5, 1),
+}
+
+
+def _bn_case(case, dtype, seed=7):
+    shape, r, s, si = BN_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (0.5 + torch.randn(shape, generator=g, device="cuda")
+         * (0.5 + torch.rand(c, generator=g, device="cuda"))).to(dtype)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+    running = (0.3 * torch.randn(c, generator=g, device="cuda"),
+               1 + torch.rand(c, generator=g, device="cuda"))
+    return tbn.geometry(shape, r, s, si), x, dy, w, bias, running
+
+
+def _within(got, want, bound, what):
+    """|got - want| <= bound elementwise (a float32 reordering bound)."""
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    bad = (got.float() - want.float()).abs() > bound
+    assert not bool(bad.any()), (what, float(
+        ((got.float() - want.float()).abs() - bound).max()))
+
+
+def _bn_args(geom):
+    from adamml_tpu_torch.models.norm import EPSILON, MOMENTUM
+    n = geom.count
+    return n / (n - 1), MOMENTUM, EPSILON
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BN_SHAPES)
+def test_cuda_bn_kernels_match_plain(case, dtype):
+    """Each BN kernel against its plain version on the same inputs: the
+    sums of the stats and grad-sums passes within 1e-5 of the sums of
+    their terms' magnitudes (float32 in another order); the finalize
+    kernels' moments, (a, b), running statistics, parameter gradients and
+    dx coefficients within 1e-5 of each output's largest entry; y and dx
+    within 1 bf16 ulp in bf16 (in float32, 1e-6 of their terms'
+    magnitudes), and so within 1e-6 of those magnitudes in bf16 too where
+    the terms cancel."""
+    _need_card()
+    geom, x, dy, w, bias, running = _bn_case(case, dtype)
+    unbias, m, eps = _bn_args(geom)
+    before = dict(tbn.launch_counts)
+
+    part = tbn.stats(x, geom)
+    xf = x.float()
+    mag = tbn.plain_stats(xf.abs(), geom)[:, 0]
+    _within(part.sum(1), tbn.plain_stats(x, geom)[:, 0], 1e-5 * mag, "sums")
+
+    sums = tbn.slab_views(part)
+    run_k = tuple(t.clone() for t in running)
+    run_p = tuple(t.clone() for t in running)
+    mom, a, b = tbn.finalize(sums, None, w, bias, run_k, geom, unbias, m,
+                             eps, tbn.MOMENTS | tbn.AFFINE)
+    want = tbn.plain_finalize(sums, None, w, bias, run_p, geom, unbias, m,
+                              eps, tbn.MOMENTS | tbn.AFFINE)
+    for name, g, v in zip(("mom", "a", "b", "running mean", "running var"),
+                          (mom, a, b) + run_k, want + run_p):
+        _within(g, v, 1e-5 * float(v.abs().max()), name)
+
+    y = tbn.apply(x, a, b, geom)
+    want_y = tbn.plain_apply(x, a, b, geom)
+    terms = tbn.plain_apply(xf.abs(), a.abs(), b.abs(), geom)
+    if dtype == torch.bfloat16:
+        assert bool(((y.float() - want_y.float()).abs()
+                     <= torch.maximum(bf16_ulp(want_y), 1e-6 * terms)).all())
+    else:
+        _within(y, want_y, 1e-6 * terms, "y")
+
+    part = tbn.grad_sums(dy, x, geom)
+    dyf = dy.float()
+    mag = tbn.plain_grad_sums(dyf.abs(), xf.abs(), geom)[:, 0]
+    _within(part.sum(1), tbn.plain_grad_sums(dy, x, geom)[:, 0],
+            1e-5 * mag, "grad sums")
+
+    for sums in (tbn.slab_views(part),
+                 tuple(t.sum(1, keepdim=True) for t in
+                       tbn.slab_views(part))):
+        got = tbn.grad_finalize(sums, mom, w, geom, eps)
+        want = tbn.plain_grad_finalize(sums, mom, w, geom, eps)
+        for name, g, v in zip(("dweight", "dbias", "coef"), got, want):
+            for i in range(v.shape[0] if name == "coef" else 1):
+                gi, vi = (g[i], v[i]) if name == "coef" else (g, v)
+                _within(gi, vi, 1e-5 * float(vi.abs().max()), name)
+    coef = got[2]
+    for d in (dy, None):
+        got = tbn.dx(d, x, coef, geom)
+        want = tbn.plain_dx(d, x, coef, geom)
+        terms = tbn.plain_dx(None if d is None else dyf.abs(), xf.abs(),
+                             coef.abs(), geom).float()
+        if dtype == torch.bfloat16:
+            assert bool(((got.float() - want.float()).abs() <= torch.maximum(
+                bf16_ulp(want), 1e-6 * terms)).all()), d is None
+        else:
+            _within(got, want, 1e-6 * terms, "dx")
+    torch.cuda.synchronize()
+    counts = {k: tbn.launch_counts[k] - before[k] for k in tbn.KERNELS}
+    assert counts == {"bn_stats": 1, "bn_finalize": 1, "bn_apply": 1,
+                      "bn_grad_sums": 1, "bn_grad_finalize": 2, "bn_dx": 2}
+
+
+def _bn_step(bn, x, dy, sq, si, return_affine):
+    xg = x.clone().requires_grad_(True)
+    out = bn(xg, True, return_affine, sq, si)
+    outs = out if return_affine else (out,)
+    cots = (dy,) if not return_affine else tuple(
+        torch.full_like(o, 0.01) * (1 + torch.arange(
+            o.numel(), device=o.device).reshape(o.shape) % 7) for o in outs)
+    torch.autograd.backward(outs, cots)
+    return [o.detach() for o in outs] + [
+        xg.grad, bn.weight.grad, bn.bias.grad, bn.running_mean.clone(),
+        bn.running_var.clone()]
+
+
+@pytest.mark.parametrize("return_affine", [False, True],
+                         ids=["apply", "return_affine"])
+@pytest.mark.parametrize("case", ["stem", "layer4", "odd_C"])
+def test_cuda_bn_is_deterministic_and_launches_its_kernels(case,
+                                                           return_affine):
+    """A train-mode GroupedBatchNorm forward and backward on the card, run
+    twice from the same state, gives the same bits; each run launches the
+    stats, finalize and (without return_affine) apply kernels forward and
+    the (grad sums,) grad finalize and dx kernels backward, once each;
+    under sync-BN (no process group: one data shard) the finalize runs in
+    its two halves."""
+    _need_card()
+    from adamml_tpu_torch.models.norm import GroupedBatchNorm
+
+    geom, x, dy, w, bias, running = _bn_case(case, torch.bfloat16, seed=11)
+    shape, r, sq, si = BN_SHAPES[case]
+    runs = []
+    for sync in (False, False, True):
+        bn = GroupedBatchNorm(shape[-1], torch.bfloat16, r).cuda()
+        bn.sync = sync
+        with torch.no_grad():
+            bn.weight.copy_(w), bn.bias.copy_(bias)
+            bn.running_mean.copy_(running[0]), bn.running_var.copy_(
+                running[1])
+        before = dict(tbn.launch_counts)
+        runs.append(_bn_step(bn, x, dy, sq, si, return_affine))
+        torch.cuda.synchronize()
+        counts = {k: tbn.launch_counts[k] - before[k] for k in tbn.KERNELS}
+        assert counts == {
+            "bn_stats": 1, "bn_finalize": 2 if sync else 1,
+            "bn_apply": 0 if return_affine else 1,
+            "bn_grad_sums": 0 if return_affine else 1,
+            "bn_grad_finalize": 1, "bn_dx": 1}, sync
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        # the split finalize takes the same sums in the same order
+        assert torch.equal(a, c)
+
+
+def _offset(t):
+    """t's values in a contiguous tensor one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("operand", ["x", "dy"])
+def test_cuda_bn_passes_take_misaligned_operands(operand):
+    """A contiguous x or dy that does not start on a 16-byte boundary sends
+    the passes that read it by vectors to one channel a thread: their
+    outputs match the plain versions as in test_cuda_bn_kernels_match_plain
+    (no misaligned-address fault)."""
+    _need_card()
+    geom, x, dy, w, bias, running = _bn_case("layer4", torch.bfloat16)
+    unbias, m, eps = _bn_args(geom)
+    if operand == "x":
+        x = _offset(x)
+    else:
+        dy = _offset(dy)
+    assert tbn._shape(x, geom, dy)[1]["vec"] == 1
+    xf, dyf = x.float(), dy.float()
+    part = tbn.stats(x, geom)
+    mag = tbn.plain_stats(xf.abs(), geom)[:, 0]
+    _within(part.sum(1), tbn.plain_stats(x, geom)[:, 0], 1e-5 * mag, "sums")
+    mom, a, b = tbn.finalize(tbn.slab_views(part), None, w, bias, None, geom,
+                             unbias, m, eps, tbn.MOMENTS | tbn.AFFINE)
+    y = tbn.apply(x, a, b, geom)
+    want = tbn.plain_apply(x, a, b, geom)
+    assert bool(((y.float() - want.float()).abs() <= torch.maximum(
+        bf16_ulp(want), 1e-6 * tbn.plain_apply(xf.abs(), a.abs(), b.abs(),
+                                               geom))).all())
+    part = tbn.grad_sums(dy, x, geom)
+    mag = tbn.plain_grad_sums(dyf.abs(), xf.abs(), geom)[:, 0]
+    _within(part.sum(1), tbn.plain_grad_sums(dy, x, geom)[:, 0],
+            1e-5 * mag, "grad sums")
+    coef = tbn.grad_finalize(tbn.slab_views(part), mom, w, geom, eps)[2]
+    got = tbn.dx(dy, x, coef, geom)
+    want = tbn.plain_dx(dy, x, coef, geom)
+    terms = tbn.plain_dx(dyf.abs(), xf.abs(), coef.abs(), geom).float()
+    assert bool(((got.float() - want.float()).abs() <= torch.maximum(
+        bf16_ulp(want), 1e-6 * terms)).all())
+    torch.cuda.synchronize()
 
 
 def test_cuda_kernel_refuses_grad_and_bad_args():
@@ -1016,11 +1231,11 @@ def test_capture_map_labels_the_replayed_kernels(phase, tmp_path,
     (utils/profiling.py): the map holds as many kernel nodes as the same
     steps captured without spans, with the same names; a replay in a
     profiler trace runs those kernels one to one in the map's order
-    (a copy node the driver runs as a kernel passed over); every kernel
-    labelled ``model.bn`` falls in the elementwise, reduction or matmul
-    classes (the running statistics' fold is a small matmul); and a replay
-    stays bit-equal to K single steps (``_replay_vs_single_steps``, with the
-    map in)."""
+    (a copy node the driver runs as a kernel passed over); the kernels
+    labelled ``model.bn`` are the six BN kernels (ops/kernels/bn_train.py),
+    each of them there, and elementwise kernels (the parameters' gradient
+    accumulation); and a replay stays bit-equal to K single steps
+    (``_replay_vs_single_steps``, with the map in)."""
     _need_card()
     from benchmark import spans
     from benchmark.trace import STRETCH, Trace, kernel_class
@@ -1081,6 +1296,14 @@ def test_capture_map_labels_the_replayed_kernels(phase, tmp_path,
     assert got is not None and len(got) == 1
     assert len(got[0]) == cmap["kernels"]
     bn = [e["name"] for e, label in got[0] if label == "model.bn"]
-    assert bn
-    assert {kernel_class(n) for n in bn} <= {"elementwise", "reduction",
-                                             "matmul"}
+    assert {_bn_kernel_of(n) for n in bn} - {None} == set(tbn.KERNELS)
+    assert {kernel_class(n) for n in bn
+            if _bn_kernel_of(n) is None} <= {"elementwise"}
+
+
+def _bn_kernel_of(name):
+    """Which of bn_train's kernels a device kernel's name is, or None."""
+    for k in tbn.KERNELS:
+        if re.search(rf"\b{k}_kernel\b", name):
+            return k
+    return None
