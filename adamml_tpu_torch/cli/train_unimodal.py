@@ -2,12 +2,18 @@
 ``adamml_tpu/cli/train_unimodal.py``).
 
 Trains a single backbone (resnet for rgb/flow/rgbdiff, sound_mobilenet_v2
-for sound). Mean/std overrides are validated like the reference
-(train_unimodal.py:100-117). Runs on CUDA unless ``main`` is given
-``device="cpu"``; multi-process runs as train_adamml's.
+for sound, unless --backbone_net names one; slowfast, the 3D SlowFast 8x8
+R50 of models/slowfast.py, for rgb clips). Mean/std overrides are
+validated like the reference (train_unimodal.py:100-117). Runs on CUDA
+unless ``main`` is given ``device="cpu"``; multi-process runs as
+train_adamml's.
 
   python -m adamml_tpu_torch.cli.train_unimodal --dataset synthetic \
       --modality rgb --backbone_net resnet -d 50 --groups 8 -b 8 ...
+  python -m adamml_tpu_torch.cli.train_unimodal --dataset kinetics400 \
+      --datadir DIR --modality rgb --backbone_net slowfast -d 50 \
+      --groups 32 --frames_per_group 2 --num_segments 1 --dense_sampling \
+      -b 64 --lr 0.8 ...
 """
 
 from __future__ import annotations

@@ -229,6 +229,8 @@ def _network_name(cfg: ExperimentConfig) -> str:
         return name
     if m.backbone_net == "sound_mobilenet_v2":
         return "sound_mobilenet_v2"
+    if m.backbone_net == "slowfast":
+        return f"slowfast-r{m.depth}"
     # adamml (reference models/adamml.py:101-109 + policy_net.py:375-379 +
     # joint_resnet_mobilenetv2.py:74-82)
     name = "adamml"
@@ -270,7 +272,8 @@ def arg_parser() -> argparse.ArgumentParser:
 
     # model
     p.add_argument("--backbone_net", default="adamml", type=str,
-                   choices=["adamml", "resnet", "sound_mobilenet_v2"])
+                   choices=["adamml", "resnet", "sound_mobilenet_v2",
+                            "slowfast"])
     p.add_argument("-d", "--depth", default=50, type=int,
                    choices=[18, 34, 50, 101, 152])
     p.add_argument("--dropout", default=0.5, type=float)
@@ -435,11 +438,15 @@ def validate_args(parser: argparse.ArgumentParser,
     ``parser.error``), then a ``ValueError`` naming each flag that the port
     cannot run: --mesh_model that does not divide the world size,
     --mesh_data other than -1 or the world size over it, and two devices
-    outside --multiprocessing-distributed."""
+    outside --multiprocessing-distributed; and for --backbone_net slowfast
+    what it cannot take (``_check_slowfast``)."""
     if args.threed_data:
-        parser.error("--threed_data requires a 3D backbone; none is in the "
-                     "model table (the reference's default 's3d' is absent "
-                     "from its MODEL_TABLE as well)")
+        parser.error("--threed_data loads clips in the (C, T, H, W) layout "
+                     "of a 3D backbone that the model table lacks (the "
+                     "reference's default 's3d' is absent from its "
+                     "MODEL_TABLE as well); the port's 3D model, "
+                     "--backbone_net slowfast, takes the port's own "
+                     "(N, S, F, H, W, C) layout without the flag")
     if args.pred_weights is not None and not args.pred_files:
         parser.error("--pred_weights requires --pred_files")
     if args.after_softmax and not args.pred_files:
@@ -456,6 +463,8 @@ def validate_args(parser: argparse.ArgumentParser,
         parser.error("--num_segments > 1 training requires --dense_sampling "
                      "(uniform train sampling yields one clip, matching "
                      "reference utils/video_dataset.py:154-168)")
+    if args.backbone_net == "slowfast":
+        _check_slowfast(args)
     if args.mesh_model < 1:
         raise ValueError(f"--mesh_model {args.mesh_model} must be at least 1")
     # the world size is known here unless a hostfile or the spawn sets it
@@ -485,6 +494,27 @@ def validate_args(parser: argparse.ArgumentParser,
     if args.disable_cudnn_benchmark:
         print("WARNING: --disable_cudnn_benchmark has no effect in the port "
               "(cudnn.benchmark left off)", flush=True)
+
+
+def _check_slowfast(args: argparse.Namespace) -> None:
+    """What SlowFast (models/slowfast.py) cannot take: other modalities
+    than rgb, more than one segment (a clip is one segment of --groups
+    frames), a frame count the slow pathway's stride 4 does not divide,
+    another depth than 50."""
+    if list(args.modality) != ["rgb"]:
+        raise ValueError(f"--backbone_net slowfast takes --modality rgb, "
+                         f"not {' '.join(args.modality)}")
+    if args.num_segments != 1:
+        raise ValueError(f"--backbone_net slowfast takes --num_segments 1 "
+                         f"(one clip of --groups frames), not "
+                         f"{args.num_segments}")
+    if args.groups % 4:
+        raise ValueError(f"--backbone_net slowfast needs --groups (the "
+                         f"clip's frames) divisible by 4, the slow "
+                         f"pathway's frame stride; got {args.groups}")
+    if args.depth != 50:
+        raise ValueError(f"--backbone_net slowfast is built at -d/--depth "
+                         f"50 only, not {args.depth}")
 
 
 def cuda_device(args: argparse.Namespace, local_rank: int = 0) -> str:

@@ -58,6 +58,21 @@ register_dataset(
     )
 )
 
+# Kinetics-400 (Kay et al., 2017), the dataset of the port's 3D model,
+# SlowFast: the TSN-style frame folders of a video's JPEGs, one list line a
+# video (folder, first frame, last frame, label)
+register_dataset(
+    DatasetMeta(
+        name="kinetics400",
+        num_classes=400,
+        train_list_name="train.txt",
+        val_list_name="val.txt",
+        filename_separator=" ",
+        image_tmpl="{:05d}.jpg",
+        filter_video=0,
+    )
+)
+
 
 def get_dataset_config(name: str) -> DatasetMeta:
     """Look up a dataset (reference utils/dataset_config.py:32-46)."""

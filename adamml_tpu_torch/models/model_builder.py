@@ -22,6 +22,7 @@ from .layers import Conv, Dense
 from .mobilenet_v2 import MobileNetV2
 from .norm import GroupedBatchNorm
 from .resnet_tsn import ResNetTSN
+from .slowfast import SlowFast
 
 Device = Optional[Union[str, torch.device]]
 
@@ -103,6 +104,10 @@ def build_model(cfg: ExperimentConfig, device: Device = None,
             fused_tpool=m.fused_tpool, input_channels=m.input_channels[0],
             remat=m.remat_backbone, remat_stages=m.remat_stages,
             bn_groups=groups)
+    elif m.backbone_net == "slowfast":
+        model = SlowFast(depth=m.depth, num_classes=m.num_classes,
+                         dropout=m.dropout, frames=m.groups, dtype=dtype,
+                         bn_groups=groups)
     elif m.backbone_net == "sound_mobilenet_v2":
         model = MobileNetV2(num_classes=m.num_classes, dropout=m.dropout,
                             use_pallas_dw=m.use_pallas_dw, dtype=dtype,
@@ -162,8 +167,13 @@ def count_params_flops_summary(model: nn.Module, cfg: ExperimentConfig
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in place: conv and dense kernels
     N(0, 1/fan_in) (flax's lecun_normal scale), biases 0, BN scale 1 and
-    bias 0 with running mean 0 / var 1, late-fusion weights 1/M."""
+    bias 0 with running mean 0 / var 1, late-fusion weights 1/M. A model
+    with rules of its own (SlowFast: PySlowFast's) has an ``init_weights``
+    that takes the generator instead."""
     gen = torch.Generator().manual_seed(seed)
+    if hasattr(model, "init_weights"):
+        model.init_weights(gen)
+        return model
     for mod in model.modules():
         if isinstance(mod, (Conv, Dense)):
             w = mod.weight

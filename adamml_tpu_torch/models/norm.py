@@ -29,8 +29,9 @@ sum over the global count), and the running update counts the global
 rows. At world size 1 the average is x / 1, the same bits as without it.
 
 In train mode the forward runs in the span ``model.bn``
-(utils/profiling.py), which, while a CUDA graph is captured, also spans
-its backward: BN's device time in the replayed graph is labelled.
+(utils/profiling.py), which, while a CUDA graph is captured or a profiler
+runs, also spans its backward: BN's device time in the replayed graph or
+an eager trace is labelled.
 
 Parameter and buffer names follow torch (weight, bias, running_mean,
 running_var); ckpt/flax_convert.py maps flax's scale/bias/mean/var onto them.

@@ -26,7 +26,7 @@ from torch import nn
 from ..ops.dropout import dropout
 from ..ops.kernels.tpool_fused import fused_bn_add_relu_tpool
 from ..ops.temporal import temporal_pool
-from .layers import Conv, Dense, max_pool_3x3_s2
+from .layers import Conv, Conv3d, Dense, max_pool_3x3_s2
 from .norm import GroupedBatchNorm
 from .remat import remat, remat_active
 
@@ -41,11 +41,18 @@ RESNET_LAYERS = {
 
 
 class _ConvBN(nn.Module):
-    def __init__(self, in_features: int, features: int, kernel: int,
-                 strides: int = 1, dtype: torch.dtype = torch.float32,
+    """Conv then train- or eval-mode BN. A (kt, kh, kw) ``kernel`` with
+    (st, sh, sw) ``strides`` makes the conv a ``Conv3d`` over
+    (N, T, H, W, C) clips (models/slowfast.py)."""
+
+    def __init__(self, in_features: int, features: int, kernel,
+                 strides=1, dtype: torch.dtype = torch.float32,
                  bn_groups: int = 1):
         super().__init__()
-        self.conv = Conv(in_features, features, kernel, strides, dtype=dtype)
+        self.conv = (Conv3d(in_features, features, kernel, strides, dtype)
+                     if isinstance(kernel, tuple) else
+                     Conv(in_features, features, kernel, strides,
+                          dtype=dtype))
         self.bn = GroupedBatchNorm(features, dtype=dtype, groups=bn_groups)
 
     def forward(self, x, train: bool, defer_affine: bool = False,
@@ -87,16 +94,24 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """reference models/resnet.py:77-113"""
+    """reference models/resnet.py:77-113. With ``temporal_kernel`` kt the
+    3D bottleneck of SlowFast (models/slowfast.py): [kt, 1, 1], then
+    [1, 3, 3] with the spatial stride, then [1, 1, 1], over
+    (N, T, H, W, C) clips."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, strides: int,
-                 downsample: bool, dtype: torch.dtype, bn_groups: int = 1):
+                 downsample: bool, dtype: torch.dtype, bn_groups: int = 1,
+                 temporal_kernel: Optional[int] = None):
         super().__init__()
-        self.cb1 = _ConvBN(inplanes, planes, 1, 1, dtype, bn_groups)
-        self.cb2 = _ConvBN(planes, planes, 3, strides, dtype, bn_groups)
-        self.cb3 = _ConvBN(planes, planes * 4, 1, 1, dtype, bn_groups)
-        self.downsample = (_ConvBN(inplanes, planes * 4, 1, strides, dtype,
+        k1, k3, k2, s = 1, 1, 3, strides
+        if temporal_kernel is not None:
+            k1, k3 = (temporal_kernel, 1, 1), (1, 1, 1)
+            k2, s = (1, 3, 3), (1, strides, strides)
+        self.cb1 = _ConvBN(inplanes, planes, k1, 1, dtype, bn_groups)
+        self.cb2 = _ConvBN(planes, planes, k2, s, dtype, bn_groups)
+        self.cb3 = _ConvBN(planes, planes * 4, k3, 1, dtype, bn_groups)
+        self.downsample = (_ConvBN(inplanes, planes * 4, k3, s, dtype,
                                    bn_groups) if downsample else None)
 
     def forward(self, x, train: bool, defer_epilogue: bool = False,

@@ -8,8 +8,10 @@ model's forward (``adamml_tpu/utils/flops.py``).
    (reference models/adamml.py:82-86).
 2. ``count_model_flops``: the FLOPs of one forward, counted by
    ``torch.utils.flop_counter.FlopCounterMode`` (2 per multiply-add of
-   the matmuls and convolutions). The JAX package takes XLA's cost
-   analysis, which also counts elementwise work, so its count is higher.
+   the matmuls and convolutions, 2D and SlowFast's 3D alike: its formula
+   takes every spatial and temporal axis of the output and the kernel).
+   The JAX package takes XLA's cost analysis, which also counts
+   elementwise work, so its count is higher.
 """
 
 from __future__ import annotations

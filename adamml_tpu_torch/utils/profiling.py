@@ -15,12 +15,16 @@
   at the end: no sync, no added node). At the end the map holds one label a kernel node, in the order
   the nodes were created, which in a graph captured on one stream is the
   order a replay runs them: the innermost span, or None. Maps are kept in
-  ``CAPTURES``. ``spanned`` also spans a module's backward, while a
-  capture is in progress: an identity ``autograd.Function`` at each end of
-  the module opens the span when the gradient of its outputs arrives and
-  closes it when the gradient of its input leaves. The autograd engine
-  runs the nodes between the two in one stretch, highest sequence number
-  first, since nothing outside the module consumes what it makes inside.
+  ``CAPTURES``.
+- ``spanned`` also spans a module's backward, while a capture is in
+  progress or a profiler runs (an eager step in a trace): an identity
+  ``autograd.Function`` at each end of the module opens the span when the
+  gradient of its outputs arrives and closes it when the gradient of its
+  input leaves (after the module's first node, where its input takes no
+  gradient). The autograd engine runs the nodes between the two in one
+  stretch, highest sequence number first, since nothing outside the
+  module consumes what it makes inside. In a trace the backward's range
+  lies on the thread that runs it: the autograd engine's, for a card.
 - ``StepProfiler``: with --profile_dir set, the curriculum hands the engine
   one for the first epoch of each training pass; it traces steps [start,
   stop) of it (loader indices; with K steps a dispatch, whole dispatches
@@ -235,50 +239,109 @@ class capture_map:
         return False
 
 
+class _Mark:
+    """One call's span in its backward: opened when the gradient of its
+    outputs arrives and closed when the gradient of its input leaves, in
+    the capture map it was made under (while that capture is in progress)
+    and, while a profiler runs, as a ``record_function`` range on the
+    thread that runs the backward (the autograd engine's, for a card)."""
+
+    __slots__ = ("name", "cap", "rf")
+
+    def __init__(self, name: str, cap: Optional["CaptureMap"]):
+        self.name, self.cap, self.rf = name, cap, None
+
+    def open(self) -> None:
+        if self.cap is not None and self.cap is _capture:
+            self.cap.open(self.name)
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+
+    def close(self) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+        if self.cap is not None and self.cap is _capture:
+            self.cap.close()
+
+
 class _BwdOpen(torch.autograd.Function):
-    """Identity on a module's outputs; its backward opens the module's span
-    in the capture map it was made under."""
+    """Identity on a module's outputs; its backward opens the span."""
 
     @staticmethod
-    def forward(ctx, cap, name, *outs):
-        ctx.cap, ctx.name = cap, name
+    def forward(ctx, mark, *outs):
+        ctx.mark = mark
         ctx.set_materialize_grads(False)
         return tuple(t.view_as(t) for t in outs)
 
     @staticmethod
     def backward(ctx, *grads):
-        if ctx.cap is _capture:
-            ctx.cap.open(ctx.name)
-        return (None, None) + grads
+        ctx.mark.open()
+        return (None,) + grads
 
 
 class _BwdClose(torch.autograd.Function):
     """Identity on a module's input; its backward closes the span."""
 
     @staticmethod
-    def forward(ctx, cap, x):
-        ctx.cap = cap
+    def forward(ctx, mark, x):
+        ctx.mark = mark
         ctx.set_materialize_grads(False)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.cap is _capture:
-            ctx.cap.close()
+        ctx.mark.close()
         return None, grad
+
+
+def _first_node(outs) -> Optional[torch.autograd.graph.Node]:
+    """The node of the earliest op that made ``outs`` from inputs that take
+    no gradient: the lowest sequence number among the nodes their
+    gradients reach, the leaves' accumulators apart. The backward runs it
+    last of them."""
+    stack = [o.grad_fn for o in outs if o.grad_fn is not None]
+    seen, first = set(), None
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen or not hasattr(node, "next_functions"):
+            continue
+        seen.add(node)
+        if node.name().endswith("AccumulateGrad"):
+            continue
+        if first is None or node._sequence_nr() < first._sequence_nr():
+            first = node
+        stack.extend(n for n, _ in node.next_functions)
+    return first
 
 
 def spanned(name: str, fn: Callable, x: torch.Tensor, *args):
     """``fn(x, *args)`` in ``span(name)``; while a capture is in progress
-    and a gradient will flow to ``x``, its backward too (``_BwdOpen`` on
-    the outputs, a tensor or a tuple of tensors, ``_BwdClose`` on x)."""
+    or a profiler runs, and a gradient flows back through the call, its
+    backward too: ``_BwdOpen`` on the outputs (a tensor or a tuple of
+    tensors), and ``_BwdClose`` on x, or where x takes no gradient (a
+    network's stem) a hook after the call's first node. With neither, one
+    flag check."""
+    if _capture is None and not _autograd_profiler._is_profiler_enabled:
+        return fn(x, *args)
     with span(name):
         cap = _capturing()
-        if cap is None or not (x.requires_grad and torch.is_grad_enabled()):
+        if (cap is None and not _autograd_profiler._is_profiler_enabled) \
+                or not torch.is_grad_enabled():
             return fn(x, *args)
-        out = fn(_BwdClose.apply(cap, x), *args)
+        mark = _Mark(name, cap)
+        out = fn(_BwdClose.apply(mark, x) if x.requires_grad else x, *args)
         many = isinstance(out, tuple)
-        outs = _BwdOpen.apply(cap, name, *(out if many else (out,)))
+        outs = out if many else (out,)
+        if not any(o.requires_grad for o in outs):
+            return out
+        if not x.requires_grad:
+            first = _first_node(outs)
+            if first is None:
+                return out
+            first.register_hook(lambda grads_in, grads_out: mark.close())
+        outs = _BwdOpen.apply(mark, *outs)
         return tuple(outs) if many else outs[0]
 
 

@@ -58,10 +58,22 @@ def _actions(parser):
         type(a).__name__) for a in parser._actions}
 
 
+# the port's own choices beyond the JAX package's: its 3D model and the
+# dataset that model trains on
+PORT_CHOICES = {("--backbone_net",): ["slowfast"],
+                ("--dataset",): ["kinetics400"]}
+
+
 def test_arg_parser_has_the_jax_flag_set():
     """Every flag: its spellings, destination, default, nargs, choices,
-    const, type and action kind."""
-    assert _actions(tconfig.arg_parser()) == _actions(jconfig.arg_parser())
+    const, type and action kind; the port's choices are the JAX package's
+    and ``PORT_CHOICES``."""
+    want = _actions(jconfig.arg_parser())
+    for flag, extra in PORT_CHOICES.items():
+        dest, default, nargs, choices, const, typ, kind = want[flag]
+        want[flag] = (dest, default, nargs, list(choices) + extra, const,
+                      typ, kind)
+    assert _actions(tconfig.arg_parser()) == want
 
 
 @pytest.mark.parametrize("argv", [VERIFY_UNIMODAL, VERIFY_ADAMML] + BAD_ARGV,

@@ -6,7 +6,8 @@ its kernels in a profile, a replayed graph and its build log), the
 tiny float32 eval and train steps on the card against the CPU, with the
 depthwise flag off and on, the device preprocessing and a tiny
 train_adamml run on the card against the CPU, and the multi-step dispatch's
-replayed CUDA graph against the same steps run as single steps.
+replayed CUDA graph against the same steps run as single steps, and
+SlowFast's 3D convolutions in bf16 channels-last against float32.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The data-parallel checks (parallel/mesh.py): an NCCL
@@ -275,13 +276,20 @@ def test_cuda_bwd_build_spills_nothing():
 
 
 # train-mode BN (ops/kernels/bn_train.py) at flagship's shapes (18 clips x
-# 5 segments x 8 frames: the ResNet-50 stem, layer 1 and layer 4) and an
-# odd C over two replica groups: (x shape, R, S, seq_inner)
+# 5 segments x 8 frames: the ResNet-50 stem, layer 1 and layer 4), an odd C
+# over two replica groups, and SlowFast 8x8's (64 clips, global moments
+# over (N, T, H, W)): the fast stem's C = 8 over 26 M rows, the slow
+# pathway's 80 channels after the first fusion, res5's 2048:
+# (x shape, R, S, seq_inner)
 BN_SHAPES = {
     "stem": ((720, 56, 56, 64), 1, 5, 8),
     "layer1": ((720, 56, 56, 256), 1, 5, 8),
     "layer4": ((90, 7, 7, 2048), 1, 5, 1),
     "odd_C": ((40, 9, 9, 37), 2, 5, 1),
+    "slowfast_fast_stem": ((64, 32, 112, 112, 8), 1, 1, 1),
+    "slowfast_fast_res2": ((64, 32, 56, 56, 8), 1, 1, 1),
+    "slowfast_fuse1": ((64, 8, 56, 56, 80), 1, 1, 1),
+    "slowfast_res5": ((64, 8, 7, 7, 2048), 1, 1, 1),
 }
 
 
@@ -484,6 +492,58 @@ def test_cuda_bn_passes_take_misaligned_operands(operand):
     assert bool(((got.float() - want.float()).abs() <= torch.maximum(
         bf16_ulp(want), 1e-6 * terms)).all())
     torch.cuda.synchronize()
+
+
+# SlowFast's 3D convolutions (models/layers.py::Conv3d) at 8 clips: the
+# fast and slow stems, a lateral connection, the fast res4's temporal conv:
+# (x shape (N, T, H, W, C), out channels, kernel, stride)
+CONV3D_SHAPES = {
+    "fast_stem": ((8, 32, 224, 224, 3), 8, (5, 7, 7), (1, 2, 2)),
+    "slow_stem": ((8, 8, 224, 224, 3), 64, (1, 7, 7), (1, 2, 2)),
+    "fuse_stem": ((8, 32, 56, 56, 8), 16, (7, 1, 1), (4, 1, 1)),
+    "fuse_res4": ((8, 32, 14, 14, 128), 256, (7, 1, 1), (4, 1, 1)),
+    "fast_res4_a": ((8, 32, 14, 14, 128), 32, (3, 1, 1), (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", CONV3D_SHAPES)
+def test_conv3d_bf16_channels_last_matches_float32(case):
+    """Conv3d in bf16 on (N, T, H, W, C) clips, read and written as
+    ``channels_last_3d`` (no layout copy: the output's permute is
+    contiguous), against F.conv3d in float32 (TF32 off) on NCDHW copies:
+    within 2^-7 of the sum of the terms' magnitudes (each product rounded
+    from bf16 operands, 2^-9 each, accumulated in float32)."""
+    _need_card()
+    from adamml_tpu_torch.models.layers import Conv3d
+
+    shape, cout, kernel, stride = CONV3D_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    conv = Conv3d(shape[-1], cout, kernel, stride, torch.bfloat16).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g,
+                                      device="cuda"))
+        got = conv(x)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xf = x.float().permute(0, 4, 1, 2, 3).contiguous()
+        wf = conv.weight.to(torch.bfloat16).float()
+        pad = tuple(k // 2 for k in kernel)
+        want = torch.nn.functional.conv3d(xf, wf, stride=stride,
+                                          padding=pad)
+        terms = torch.nn.functional.conv3d(xf.abs(), wf.abs(), stride=stride,
+                                           padding=pad)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    want = want.permute(0, 2, 3, 4, 1)
+    terms = terms.permute(0, 2, 3, 4, 1)
+    assert got.shape == want.shape
+    assert bool(((got.float() - want).abs() <= 2 ** -7 * terms).all())
 
 
 def test_cuda_kernel_refuses_grad_and_bad_args():

@@ -65,7 +65,12 @@ def test_constants_and_datasets_match():
         assert getattr(tcfg, name) == getattr(jcfg, name), name
     for m in jcfg.MODALITIES:
         assert tcfg.input_channels_for(m) == jcfg.input_channels_for(m)
-    assert set(tds.DATASET_CONFIG) == set(jds.DATASET_CONFIG)
+    # the port adds Kinetics-400, its 3D model's dataset
+    assert set(tds.DATASET_CONFIG) == set(jds.DATASET_CONFIG) | {
+        "kinetics400"}
+    k400 = tds.get_dataset_config("kinetics400")
+    assert (k400.num_classes, k400.train_list_name, k400.val_list_name,
+            k400.image_tmpl) == (400, "train.txt", "val.txt", "{:05d}.jpg")
     for name in jds.DATASET_CONFIG:
         assert (dataclasses.asdict(tds.get_dataset_config(name))
                 == dataclasses.asdict(jds.get_dataset_config(name)))
