@@ -1,7 +1,19 @@
 """Host data loader: sharded, shuffled, thread-prefetched batches (the
 port's copy of ``adamml_tpu/data/dataflow.py``: the same batches, byte for
-byte). Batches are numpy; the device pipeline pins and copies them on the
-consuming thread, so no worker thread touches CUDA.
+byte).
+
+A batch is assembled where the card will read it. For each batch the
+producer thread takes a buffer with a row a sample for each large array
+(``<m>_frames``, ``sound_wave``), and the worker threads write every
+sample into its row; the small arrays (``hw``, crops, flips,
+``sound_valid``, the targets) are stacked as before. With a CUDA device
+present the buffers are page-locked tensors from torch's caching host
+allocator (``PinnedMemory``), which ``device_pipeline.to_device`` copies
+to the card as they are; the allocator reuses a buffer once the batch is
+dropped and its copies have run. Otherwise each batch gets new numpy
+arrays. The workers only copy bytes: the thread that takes the batches
+allocates every buffer and drops the last reference to it, so it alone
+makes the allocator's CUDA calls.
 
 Replaces the reference's torch DataLoader + DistributedSampler stack
 (reference utils/utils.py:153-163): per-process index sharding (the port
@@ -20,12 +32,42 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.profiling import counted
 from .aug_params import oversample_crop_flip, sample_crop_flip
+
+# batch key -> (shape of one sample's array, dtype): the large arrays
+Spec = Dict[str, Tuple[tuple, np.dtype]]
+
+
+class PinnedMemory:
+    """Page-locked host memory from torch's caching host allocator. A block
+    goes back to the allocator when its last tensor is gone (the array
+    ``Tensor.numpy()`` makes keeps its tensor alive), and the allocator
+    hands it out again only once every copy to a card that read it has
+    run: it records an event on the stream of each such copy."""
+
+    @staticmethod
+    def available() -> bool:
+        return torch.cuda.is_available()
+
+    @staticmethod
+    def empty(shape: tuple, dtype: np.dtype) -> torch.Tensor:
+        like = torch.from_numpy(np.empty(0, dtype))
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+
+
+class _Need:
+    """The producer's request for a buffer, sent on the batch queue."""
+
+    __slots__ = ("spec",)
+
+    def __init__(self, spec: Spec):
+        self.spec = spec
 
 
 class HostDataLoader:
@@ -63,6 +105,12 @@ class HostDataLoader:
         self.num_crops = num_crops if not is_train else 1
         self.epoch = 0
         self.modality = list(getattr(dataset, "modality", ["rgb"]))
+        # the large arrays: batch key -> (payload modality, payload field)
+        self._large = {("sound_wave" if m == "sound" else f"{m}_frames"):
+                       (m, "wave" if m == "sound" else "frames")
+                       for m in self.modality}
+        self.pinned = PinnedMemory()
+        self._rngs = threading.local()
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -142,7 +190,47 @@ class HostDataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _collate(self, samples, rng: np.random.RandomState) -> Dict:
+    def _spec(self, sample) -> Spec:
+        """Each large array's shape and dtype, from one sample."""
+        payload, _ = sample
+        return {k: (payload[m][f].shape, payload[m][f].dtype)
+                for k, (m, f) in self._large.items()}
+
+    def _fill(self, pool, bufs: Dict[str, np.ndarray], samples) -> None:
+        """Write every sample's large arrays into its rows of ``bufs``, in
+        the worker threads: the copies cut along the sample's first axis
+        into about four pieces a worker, so that the workers share the
+        bytes evenly. A sample whose array differs from its row in shape or
+        dtype raises."""
+        pieces = []
+        for k, (m, f) in self._large.items():
+            dst = bufs[k]
+            for j, (payload, _) in enumerate(samples):
+                src = payload[m][f]
+                if src.shape != dst.shape[1:] or src.dtype != dst.dtype:
+                    raise ValueError(
+                        f"{k}: sample {j} is {src.dtype} {src.shape}, its "
+                        f"row {dst.dtype} {dst.shape[1:]}")
+                pieces.append((dst[j, ...], src))
+        share = max(1, sum(d.nbytes for d, _ in pieces)
+                    // (4 * self.workers))
+        cut = []
+        for d, s in pieces:
+            n = min(len(d), -(-d.nbytes // share)) if d.ndim else 1
+            cut += (zip(np.array_split(d, n), np.array_split(s, n)) if n > 1
+                    else [(d, s)])
+        # the tasks carry indices, so that no worker holds a view of a
+        # buffer once ``cut`` is cleared
+        try:
+            for _ in pool.map(lambda i: np.copyto(*cut[i]), range(len(cut))):
+                pass
+        finally:
+            cut.clear()
+
+    def _collate(self, samples, rng: np.random.RandomState,
+                 bufs: Dict[str, np.ndarray]) -> Dict:
+        """The batch: the large arrays ``bufs`` (filled by ``_fill``), the
+        small ones stacked here, crops and flips drawn from ``rng``."""
         batch: Dict[str, np.ndarray] = {}
         labels = []
         per_mod: Dict[str, list] = {m: [] for m in self.modality}
@@ -153,10 +241,9 @@ class HostDataLoader:
         for m in self.modality:
             items = per_mod[m]
             if m == "sound":
-                batch["sound_wave"] = np.stack([it["wave"] for it in items])
+                batch["sound_wave"] = bufs["sound_wave"]
                 batch["sound_valid"] = np.stack([it["valid"] for it in items])
                 continue
-            frames = np.stack([it["frames"] for it in items])
             hw = np.stack([it["hw"] for it in items])
             if not self.is_train and self.num_crops > 1:
                 crop, flip = oversample_crop_flip(
@@ -170,7 +257,7 @@ class HostDataLoader:
                     disable_scaleup=self.disable_scaleup, rng=rng)
                 if not self.is_train:
                     flip = np.zeros_like(flip)
-            batch[f"{m}_frames"] = frames
+            batch[f"{m}_frames"] = bufs[f"{m}_frames"]
             batch[f"{m}_crop"] = crop
             batch[f"{m}_flip"] = flip
         first = labels[0]
@@ -183,10 +270,21 @@ class HostDataLoader:
     def _sample_rng(self, index: int) -> np.random.RandomState:
         """Per-sample RandomState keyed on (seed, epoch, index): identical
         seeds reproduce identical frame indices regardless of thread
-        scheduling, and no worker ever touches the global np.random."""
+        scheduling, and no worker ever touches the global np.random.
+
+        Each thread reseeds one RandomState of its own, valid until its
+        next call: the state of ``RandomState(mix)``, without the OS
+        entropy that a new one draws first and discards, a far slower call
+        that holds the interpreter lock, which the consuming thread then
+        waits out."""
         mix = (1_000_003 * self.seed + 9_176_957 * (self.epoch + 1)
                + 2_654_435_761 * index) % (2**31 - 1)
-        return np.random.RandomState(mix)
+        rng = getattr(self._rngs, "rng", None)
+        if rng is None:
+            rng = self._rngs.rng = np.random.RandomState(mix)
+        else:
+            rng.seed(mix)
+        return rng
 
     def _fetch(self, index: int):
         idx = int(index)
@@ -206,32 +304,87 @@ class HostDataLoader:
         pool = ThreadPoolExecutor(max_workers=self.workers)
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        # with a card, page-locked buffers that this thread allocates and
+        # hands to the producer; without, new numpy arrays a batch
+        pinned = self.pinned.available()
+        free: "queue.SimpleQueue" = queue.SimpleQueue()
 
         def produce():
+            spec = None
             try:
                 for idxs in batches:
                     if stop.is_set():
                         return
                     samples = list(pool.map(self._fetch,
                                             [int(i) for i in idxs]))
+                    spec = spec or self._spec(samples[0])
+                    n = len(samples)
+                    if pinned:
+                        try:
+                            bufs = free.get_nowait()
+                        except queue.Empty:
+                            out_q.put(_Need(spec))
+                            bufs = free.get()
+                        if bufs is None:
+                            return
+                        bufs = {k: (t if n == len(t) else t[:n]).numpy()
+                                for k, t in bufs.items()}
+                    else:
+                        bufs = {k: np.empty((n,) + shape, dtype)
+                                for k, (shape, dtype) in spec.items()}
                     # a count and seconds a batch (utils/profiling.py)
                     with counted("data.collate"):
-                        batch = self._collate(samples, rng)
-                    out_q.put(batch)
+                        self._fill(pool, bufs, samples)
+                        box = [self._collate(samples, rng, bufs)]
+                    del bufs, samples
+                    # the consumer empties the box: its reference to the
+                    # batch is then the only one
+                    out_q.put(box)
                 out_q.put(None)
             except BaseException as e:  # surface worker errors to consumer
                 out_q.put(e)
 
         producer = threading.Thread(target=produce, daemon=True)
         producer.start()
+        spec, handed = None, 0
+
+        def hand() -> None:
+            """A batch's buffers to the producer, while batches remain
+            without: one at its request, and one at each batch taken, so
+            that it can fill ahead while this thread is away."""
+            nonlocal handed
+            if handed < nb:
+                handed += 1
+                with counted("data.pinned_alloc"):
+                    free.put({k: self.pinned.empty(
+                        (self.batch_size,) + shape, dtype)
+                        for k, (shape, dtype) in spec.items()})
+
         try:
             while True:
+                batch = None  # the consumer alone holds what it took
                 item = out_q.get()
+                if isinstance(item, _Need):
+                    spec = item.spec
+                    hand()
+                    continue
                 if item is None:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                yield item
+                batch = item.pop()
+                if spec is not None:
+                    hand()
+                yield batch
         finally:
             stop.set()
-            pool.shutdown(wait=False)
+            free.put(None)  # wakes a producer waiting for a buffer
+            # fetches not yet begun are cancelled: an early break waits
+            # only for the samples being fetched
+            pool.shutdown(wait=False, cancel_futures=True)
+            while producer.is_alive():
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    producer.join(0.01)
+            pool.shutdown(wait=True)

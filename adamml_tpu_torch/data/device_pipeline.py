@@ -1,8 +1,9 @@
 """Host batch -> model inputs, on the device
 (``adamml_tpu/data/device_pipeline.py``).
 
-The loader's numpy batch is pinned and copied to the device on the
-consuming thread (``non_blocking`` when the device is a card), then:
+The loader hands its batch over already in page-locked memory where a card
+is present (``data/dataflow.py``); each array goes to the device on the
+consuming thread in one ``non_blocking`` copy (``to_device``), then:
 
   rgb     (N, T, Hc, Wc, 3)    -> crop/resize/flip/normalize -> (N,S,F,h,w,3)
   flow    (N, T*5, Hc, Wc, 2)  -> same + x-inversion on flip -> (N,S,F,h,w,10)
@@ -26,7 +27,7 @@ from ..configs.config import modality_mean, modality_std
 from ..models.model_builder import compute_dtype
 from ..ops.augment import crop_resize_normalize, rgbdiff_from_frames
 from ..ops.spectrogram import SpectrogramConfig, log_power_spectrogram
-from ..utils.profiling import span
+from ..utils.profiling import counted, span
 
 
 def _mean_std(modality: str, skip: bool, mean_override, std_override,
@@ -40,14 +41,35 @@ def _mean_std(modality: str, skip: bool, mean_override, std_override,
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: through pinned memory with a
-    non-blocking copy to a card, as it is on the CPU. Runs in the span
+    """A host array on ``device``: on the CPU the array itself; to a card
+    one ``non_blocking`` copy. An array that the loader assembled in
+    page-locked memory (as ``Tensor.numpy()`` made it) is copied straight
+    from the tensor behind it (``data.h2d.direct``): the copy reads torch's
+    own tensor, so its caching host allocator orders any later reuse of
+    that memory after the copy. Any other array is first copied into
+    pinned memory here (``data.h2d.staged``). Runs in the span
     ``data.h2d`` (utils/profiling.py)."""
     with span("data.h2d"):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type != "cuda":
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
+        if device.type == "cpu":
+            return torch.from_numpy(np.ascontiguousarray(x))
+        src = _pinned_tensor(x)
+        if src is not None:
+            with counted("data.h2d.direct"):
+                return src.to(device, non_blocking=True)
+        with counted("data.h2d.staged"):
+            t = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+            return t.to(device, non_blocking=True)
+
+
+def _pinned_tensor(x: np.ndarray):
+    """The page-locked tensor whose memory ``x`` is, whole, or None."""
+    t = x.base
+    if (isinstance(t, torch.Tensor) and tuple(t.shape) == x.shape
+            and t.is_contiguous() and x.flags.c_contiguous
+            and t.data_ptr() == x.__array_interface__["data"][0]
+            and t.is_pinned()):
+        return t
+    return None
 
 
 def make_batch_preprocessor(cfg, *, train: bool, num_segments: int,

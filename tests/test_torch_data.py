@@ -11,6 +11,11 @@ the log power (two float32 FFTs of 511 points: measured 1.2e-4), both also
 held to the float64 numpy twin; the batch preprocessors within 1e-4.
 """
 
+import sys
+import threading
+import time
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -106,6 +111,276 @@ def test_loader_epoch_reshuffles_like_jax():
         for b_j, b_t in zip(jl, tl):
             np.testing.assert_array_equal(b_t["rgb_crop"], b_j["rgb_crop"])
             np.testing.assert_array_equal(b_t["target"], b_j["target"])
+
+
+# --------------------------------------------------------------------------
+# batches assembled in place
+# --------------------------------------------------------------------------
+
+class FakePinned:
+    """``dataflow.PinnedMemory`` on the CPU: plain tensors over numpy
+    arrays. ``allocs`` counts them (one a large key a batch), ``alive``
+    those not yet freed and ``peak`` the most alive at once; ``freed_on``
+    names the thread that freed each, as the storage's last reference went
+    (where torch's allocator makes its CUDA calls)."""
+
+    def __init__(self):
+        self.allocs = self.alive = self.peak = 0
+        self.freed_on = []
+        self.lock = threading.Lock()
+
+    def available(self):
+        return True
+
+    def empty(self, shape, dtype):
+        a = np.empty(shape, dtype)
+        weakref.finalize(a, self._freed)
+        with self.lock:
+            self.allocs += 1
+            self.alive += 1
+            self.peak = max(self.peak, self.alive)
+        return torch.from_numpy(a)
+
+    def _freed(self):
+        with self.lock:
+            self.alive -= 1
+            self.freed_on.append(threading.current_thread().name)
+
+
+def _stacked(loader):
+    """The loader's batches as ``np.stack`` of the fetched samples builds
+    them: the reference for the fill in place."""
+    idx = loader._indices()
+    rng = np.random.RandomState(
+        (loader.seed + 7919 * (loader.epoch + 1)) % (2**31))
+    out = []
+    for b in range(len(loader)):
+        samples = [loader._fetch(i)
+                   for i in idx[b * loader.batch_size:
+                                (b + 1) * loader.batch_size]]
+        bufs = {k: np.stack([p[m][f] for p, _ in samples])
+                for k, (m, f) in loader._large.items()}
+        out.append(loader._collate(samples, rng, bufs))
+    return out
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for k in w:
+            assert g[k].dtype == w[k].dtype, k
+            assert g[k].shape == w[k].shape, k
+            assert g[k].tobytes() == w[k].tobytes(), k
+
+
+FILL_CASES = [
+    # (modality, is_train, length, num_crops, pad_to_batch)
+    (("rgb", "sound"), True, 9, 1, None),
+    (("rgb", "sound"), False, 10, 1, None),
+    (("rgb", "sound"), False, 6, 10, None),
+    (("flow", "rgbdiff"), True, 8, 1, None),
+    (("flow", "rgbdiff"), False, 7, 10, None),
+    (("rgb", "flow", "rgbdiff", "sound"), False, 9, 1, False),
+    (("rgb", "flow", "rgbdiff", "sound"), True, 9, 1, None),
+    (("sound",), False, 5, 1, None),
+]
+
+
+@pytest.mark.parametrize("memory", ["numpy", "ring"])
+@pytest.mark.parametrize(
+    "modality,is_train,length,crops,pad", FILL_CASES,
+    ids=["-".join(c[0]) + ("-train" if c[1] else "-val") + f"-n{c[2]}"
+         f"-crops{c[3]}" + ("-short-tail" if c[4] is False else "")
+         for c in FILL_CASES])
+def test_loader_fill_equals_stack(modality, is_train, length, crops, pad,
+                                  memory):
+    """Every batch filled in place (new numpy arrays, or a ring of buffers
+    as with a card) equals ``np.stack`` of the fetched samples in every
+    key, dtype and byte, the padded val tail and a short tail batch too;
+    the batches ``list(loader)`` keeps stay intact and share no memory."""
+    ds = TSynthetic(list(modality), length=length, num_groups=2,
+                    frames_per_group=2, num_clips=2, num_classes=7,
+                    canvas_size=CANVAS, audio_length=0.02,
+                    is_train=is_train, dense_sampling=True, seed=3)
+    ld = tflow.HostDataLoader(ds, 4, is_train=is_train, input_size=16,
+                              scale_range=(20, 28), workers=3, seed=5,
+                              num_crops=crops, pad_to_batch=pad)
+    ld.set_epoch(2)
+    if memory == "ring":
+        ld.pinned = FakePinned()
+    got = list(ld)
+    _assert_same(got, _stacked(ld))
+    assert got[-1][next(iter(ld._large))].shape[0] == (
+        length % 4 if pad is False else 4)
+    large = [b[k] for b in got for k in ld._large]
+    for i, a in enumerate(large):
+        for b in large[i + 1:]:
+            assert not np.shares_memory(a, b)
+    if memory == "ring":
+        assert ld.pinned.allocs == len(got) * len(ld._large)
+
+
+class _Odd:
+    """A dataset whose sample ``bad`` has frames of another shape or
+    dtype."""
+
+    modality = ["rgb"]
+
+    def __init__(self, bad, how):
+        self.bad, self.how = bad, how
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        shape, dtype = (2, 4, 4, 3), np.uint8
+        if i == self.bad:
+            if self.how == "shape":
+                shape = (2, 4, 5, 3)
+            else:
+                dtype = np.int16
+        return ({"rgb": {"frames": np.full(shape, i, dtype),
+                         "hw": np.asarray([4, 4], np.int32)}}, i % 3)
+
+
+@pytest.mark.parametrize("memory", ["numpy", "ring"])
+@pytest.mark.parametrize("bad", [2, 6], ids=["first-batch", "second-batch"])
+@pytest.mark.parametrize("how", ["shape", "dtype"])
+def test_loader_sample_unlike_its_row_raises(how, bad, memory):
+    """A sample whose frames differ from their row in shape or dtype
+    raises, in the first batch or a later one."""
+    ld = tflow.HostDataLoader(_Odd(bad, how), 4, is_train=False,
+                              input_size=4, workers=2)
+    if memory == "ring":
+        ld.pinned = FakePinned()
+    with pytest.raises(ValueError, match=f"sample {bad % 4}"):
+        list(ld)
+
+
+def _ring_dataset(length):
+    return TSynthetic(["rgb", "sound"], length=length, num_groups=2,
+                      frames_per_group=2, num_clips=1, num_classes=7,
+                      canvas_size=CANVAS, audio_length=0.02, is_train=True,
+                      dense_sampling=True, seed=4)
+
+
+def _ring_loader(length, pinned, prefetch=2, workers=3):
+    ld = tflow.HostDataLoader(_ring_dataset(length), 2, is_train=True, input_size=16,
+                              scale_range=(20, 28), workers=workers,
+                              seed=6, prefetch=prefetch)
+    ld.pinned = pinned
+    return ld
+
+
+def _freed_here(pinned):
+    me = threading.current_thread().name
+    return pinned.alive == 0 and set(pinned.freed_on) <= {me}
+
+
+@pytest.mark.parametrize("lag", [0, 3])
+def test_ring_reuses_a_buffer_only_after_its_late_copy(lag):
+    """A consumer that drops each batch, after a pause of ``lag`` ms: each
+    batch holds its own bytes; the loader allocates one buffer a batch
+    from the allocator (which reuses a block only once the batch is gone
+    and its copies have run), drops the last reference to each on the
+    consuming thread, and holds at most prefetch + 4 at once: the batch
+    taken, the queued ones, the one being filled, one handed ahead and one
+    handed at a request answered late."""
+    pinned = FakePinned()
+    ld = _ring_loader(24, pinned)
+    want = _stacked(ld)
+    n = 0
+    for i, batch in enumerate(ld):
+        _assert_same([batch], [want[i]])
+        time.sleep(lag / 1e3)
+        n += 1
+    del batch
+    assert n == 12
+    assert pinned.allocs == n * len(ld._large)
+    assert pinned.peak <= (ld.prefetch + 4) * len(ld._large)
+    assert _freed_here(pinned)
+
+
+def test_ring_consumer_holding_more_than_the_ring():
+    """Batches held past the prefetch keep buffers of their own; all stay
+    intact, and are freed where the consumer drops them."""
+    pinned = FakePinned()
+    ld = _ring_loader(24, pinned)
+    want = _stacked(ld)
+    it = iter(ld)
+    kept = [next(it) for _ in range(8)]
+    _assert_same(kept, want[:8])
+    assert pinned.alive >= 8 * len(ld._large)
+    del kept
+    rest = list(it)
+    _assert_same(rest, want[8:])
+    del rest, it
+    assert _freed_here(pinned)
+
+
+def test_ring_under_thread_switches():
+    """More workers than cores, a thread switch every microsecond, and a
+    consumer that keeps a random share of its batches for a while: every
+    batch reads its own bytes, every buffer is freed on the consuming
+    thread, and the pass ends with its threads."""
+    rs = np.random.RandomState(0)
+    pinned = FakePinned()
+    ld = _ring_loader(60, pinned, prefetch=3, workers=16)
+    want = _stacked(ld)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    before = threading.active_count()
+    t0 = time.monotonic()
+    try:
+        kept = []
+        for i, batch in enumerate(ld):
+            _assert_same([batch], [want[i]])
+            if rs.rand() < 0.4:
+                kept.append((i, batch))
+            if len(kept) > 3:
+                j, old = kept.pop(rs.randint(len(kept)))
+                _assert_same([old], [want[j]])
+            del batch
+    finally:
+        sys.setswitchinterval(switch)
+    for j, old in kept:
+        _assert_same([old], [want[j]])
+    del kept, old
+    assert _freed_here(pinned)
+    assert time.monotonic() - t0 < 60
+    assert threading.active_count() == before
+
+
+def test_loader_early_break_cuts_the_fetch_short():
+    """A consumer that stops after the first batch waits for the samples
+    being fetched, not for the rest of the next batch's, and the pass
+    ends with its threads."""
+    ds = _Slow(_ring_dataset(24), seconds=0.4)
+    ld = tflow.HostDataLoader(ds, 8, is_train=True, input_size=16,
+                              scale_range=(20, 28), workers=2, seed=6)
+    before = threading.active_count()
+    it = iter(ld)
+    next(it)
+    t0 = time.monotonic()
+    it.close()
+    assert time.monotonic() - t0 < 1.0
+    assert threading.active_count() == before
+
+
+class _Slow:
+    """A dataset whose every sample takes ``seconds`` to fetch."""
+
+    def __init__(self, ds, seconds):
+        self.ds, self.seconds = ds, seconds
+        self.modality = ds.modality
+
+    def __len__(self):
+        return len(self.ds)
+
+    def get_sample(self, index, rng=None):
+        time.sleep(self.seconds)
+        return self.ds.get_sample(index, rng)
 
 
 # --------------------------------------------------------------------------

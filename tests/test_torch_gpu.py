@@ -7,7 +7,12 @@ tiny float32 eval and train steps on the card against the CPU, with the
 depthwise flag off and on, the device preprocessing and a tiny
 train_adamml run on the card against the CPU, and the multi-step dispatch's
 replayed CUDA graph against the same steps run as single steps, and
-SlowFast's 3D convolutions in bf16 channels-last against float32.
+SlowFast's 3D convolutions in bf16 channels-last against float32. The
+loader's page-locked batch buffers: a buffer reused only after the copy
+that read it (the stream held before each copy, on the current stream, a
+side stream and a second card), a consumer holding more batches than the
+loader prefetches, and the K = 2 capture while the loader's threads fill
+buffers.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The data-parallel checks (parallel/mesh.py): an NCCL
@@ -33,7 +38,10 @@ import torch
 from adamml_tpu_torch.cli import train_adamml
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.configs.config import arg_parser, config_from_args
-from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
+from adamml_tpu_torch.data.dataflow import HostDataLoader
+from adamml_tpu_torch.data.device_pipeline import (make_batch_preprocessor,
+                                                    to_device)
+from adamml_tpu_torch.data.synthetic import SyntheticVideoDataset
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.ops.augment import policy_stream
@@ -49,6 +57,7 @@ from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
                                           make_adamml_train_step)
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
+from adamml_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -1146,6 +1155,172 @@ def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch):
     _replay_vs_single_steps(phase, use_pallas_dw=True)
 
 
+class _SlowSamples:
+    """A dataset whose every sample takes ``seconds`` to fetch."""
+
+    def __init__(self, ds, seconds):
+        self.ds, self.seconds = ds, seconds
+        self.modality = ds.modality
+
+    def __len__(self):
+        return len(self.ds)
+
+    def get_sample(self, index, rng=None):
+        time.sleep(self.seconds)
+        return self.ds.get_sample(index, rng)
+
+
+class _NoCard:
+    def available(self):
+        return False
+
+
+def _ring_loader(batches, *, seconds=0.0, prefetch=2, canvas=(64, 96)):
+    """(a loader over the card's ring of page-locked buffers, the same
+    loader's batches as new numpy arrays)."""
+    out = []
+    for pinned in (None, _NoCard()):
+        ds = SyntheticVideoDataset(["rgb", "sound"], length=4 * batches,
+                                   num_groups=4, frames_per_group=2,
+                                   num_clips=2, num_classes=7,
+                                   canvas_size=canvas, audio_length=0.16,
+                                   is_train=True, dense_sampling=True, seed=9)
+        ld = HostDataLoader(_SlowSamples(ds, seconds), 4, is_train=True,
+                            input_size=32, scale_range=(64, 80), workers=2,
+                            seed=11, prefetch=prefetch)
+        if pinned is not None:
+            ld.pinned = pinned
+        out.append(ld)
+    return out[0], list(out[1])
+
+
+def _counts(*names):
+    got = profiling.counters()
+    return [got.get(n, {"count": 0})["count"] for n in names]
+
+
+NAMES = ("data.h2d.direct", "data.h2d.staged", "data.pinned_alloc")
+
+
+def _host_blocks():
+    """Page-locked blocks torch's caching host allocator has made (its
+    statistics are empty until it makes one)."""
+    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+
+
+def test_ring_reuses_buffers_only_after_their_copies():
+    """The stream held (``torch.cuda._sleep``) before each copy, so that
+    the loader runs ahead of the card, and each batch dropped once its
+    large arrays are enqueued; the host waits for the card every fourth
+    batch, as a dispatch does. Every copy on the card holds its batch's
+    bytes, though the allocator reused its blocks (fewer made than the 16
+    batches' buffers); every frames and wave array went straight from its
+    page-locked buffer (``data.h2d.direct``), none through a staged copy,
+    and the loader asked for one batch's buffers a batch."""
+    _need_card()
+    ld, want = _ring_loader(16)
+    before, blocks = _counts(*NAMES), _host_blocks()
+    copies = []
+    for i, batch in enumerate(ld):
+        for k in ld._large:
+            torch.cuda._sleep(10_000_000)
+            copies.append(to_device(batch[k], torch.device("cuda")))
+        del batch
+        if i % 4 == 3:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    direct, staged, allocs = (a - b for a, b in zip(_counts(*NAMES), before))
+    got = iter(copies)
+    for w in want:
+        for k in ld._large:
+            assert next(got).cpu().numpy().tobytes() == w[k].tobytes(), k
+    assert (direct, staged, allocs) == (16 * len(ld._large), 0, 16)
+    assert _host_blocks() - blocks < 16 * len(ld._large)
+
+
+@pytest.mark.parametrize("where", ["side-stream", "second-card"])
+def test_ring_orders_reuse_after_a_copy_on_another_stream(where):
+    """Each batch copied on a stream other than the current one, held
+    (``torch.cuda._sleep``) before the copy, then dropped: a side stream of
+    the current card, or the current stream of a second card while the
+    current device stays the first (as a run on ``cuda:1`` without
+    ``set_device``). Every copy holds its batch's bytes: the allocator
+    orders a block's reuse after the stream the copy ran on."""
+    _need_card()
+    if where == "second-card" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 0 if where == "side-stream" else 1)
+    side = torch.cuda.Stream()
+
+    def copy(x):
+        if where == "side-stream":
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(10_000_000)
+                return to_device(x, dev)
+        with torch.cuda.device(dev):   # the second card's current stream
+            torch.cuda._sleep(10_000_000)
+        assert torch.cuda.current_device() == 0
+        return to_device(x, dev)
+
+    ld, want = _ring_loader(16)
+    copies = []
+    for batch in ld:
+        copies += [copy(batch[k]) for k in ld._large]
+        del batch
+    torch.cuda.synchronize(dev)
+    got = iter(copies)
+    for w in want:
+        for k in ld._large:
+            assert next(got).cpu().numpy().tobytes() == w[k].tobytes(), k
+
+
+def test_ring_consumer_holding_more_batches_than_the_ring():
+    """``list(loader)`` holds every batch: a buffer each at least, all
+    intact, and each copied to the card intact after the pass."""
+    _need_card()
+    ld, want = _ring_loader(12)
+    before = _counts(*NAMES)
+    kept = list(ld)
+    assert _counts(*NAMES)[2] - before[2] == 12
+    for got, w in zip(kept, want):
+        for k in w:
+            assert got[k].tobytes() == w[k].tobytes(), k
+    copies = []
+    for got in kept:
+        torch.cuda._sleep(10_000_000)
+        copies.append([to_device(got[k], torch.device("cuda"))
+                       for k in ld._large])
+    torch.cuda.synchronize()
+    for c, w in zip(copies, want):
+        for d, k in zip(c, ld._large):
+            assert d.cpu().numpy().tobytes() == w[k].tobytes(), k
+
+
+def test_multi_step_capture_while_the_loader_fills(monkeypatch):
+    """The K = 2 graph captures and replays while the loader's threads
+    fetch and fill page-locked buffers (those handed to the producer at
+    the batches taken before), and a replay still equals the eager steps;
+    at least one batch was filled while the steps ran, and the batches
+    taken after them are intact."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ld, want = _ring_loader(24, seconds=0.05, prefetch=6, canvas=(256, 464))
+    it = iter(ld)
+    first = [next(it) for _ in range(9)]
+    del first
+    torch.cuda.synchronize()
+    got = [next(it)]   # its take hands the producer one more buffer
+    filled = _counts("data.collate")[0]
+    t0 = time.perf_counter()
+    _replay_vs_single_steps("main", use_pallas_dw=False)
+    assert time.perf_counter() - t0 > 0.2
+    assert _counts("data.collate")[0] > filled
+    got += list(it)
+    for g, w in zip(got, want[9:]):
+        for k in w:
+            assert g[k].tobytes() == w[k].tobytes(), k
+
+
 @pytest.fixture
 def group_of_one(request, tmp_path):
     """A process group of one on cuda:0 in this process (``request.param``:
@@ -1299,7 +1474,6 @@ def test_capture_map_labels_the_replayed_kernels(phase, tmp_path,
     _need_card()
     from benchmark import spans
     from benchmark.trace import STRETCH, Trace, kernel_class
-    from adamml_tpu_torch.utils import profiling
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     _replay_vs_single_steps(phase, use_pallas_dw=False)

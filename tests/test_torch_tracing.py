@@ -1,6 +1,7 @@
 """The port's spans, counters and capture map (``utils/profiling.py``) on
 the CPU: spans cost nothing without a profiler; the pinned-copy spans of a
-preprocessing and the loader's collate counter; the capture map assembled
+preprocessing, the loader's collate counter, and the counters of its
+pinned buffers and of direct and staged copies; the capture map assembled
 from span boundaries that a stub node counter gives; the BN markers, forced
 on by a capture map with stub counters, leave forward outputs and
 gradients bit-equal; ``StepProfiler`` over whole dispatches, with the
@@ -18,7 +19,8 @@ import torch
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.configs.config import arg_parser, config_from_args
 from adamml_tpu_torch.data.dataflow import HostDataLoader
-from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
+from adamml_tpu_torch.data.device_pipeline import (make_batch_preprocessor,
+                                                    to_device)
 from adamml_tpu_torch.data.synthetic import SyntheticVideoDataset
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.models.norm import GroupedBatchNorm
@@ -111,6 +113,50 @@ def test_collate_counter_counts_each_batch(tmp_path):
     spans = [e for e in _events(prof, tmp_path)
              if e["name"] == "data.collate"]
     assert len(spans) in (0, 3)
+
+
+class _Pinned:
+    """The loader's pinned memory on the CPU: plain tensors."""
+
+    def available(self):
+        return True
+
+    def empty(self, shape, dtype):
+        return torch.from_numpy(np.empty(shape, dtype))
+
+
+def test_h2d_and_pinned_counters_count_each_event(monkeypatch):
+    """``data.pinned_alloc`` counts each batch's buffers the loader
+    allocates (one a batch); ``data.h2d.direct`` each array
+    copied straight from the page-locked tensor behind it, and
+    ``data.h2d.staged`` each array first pinned by a copy (a small one, a
+    copy of a large one, or a part of one), once an event. On the CPU, with
+    torch's pinned check and pinning stubbed, to the meta device."""
+    names = ("data.pinned_alloc", "data.h2d.direct", "data.h2d.staged")
+
+    def counts():
+        got = profiling.counters()
+        return [got.get(n, {"count": 0})["count"] for n in names]
+
+    loader = _loader(batches=3)
+    loader.pinned = _Pinned()
+    before = counts()
+    batches = list(loader)
+    assert counts() == [before[0] + 3] + before[1:]
+    monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: True)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
+    meta = torch.device("meta")
+    frames = batches[0]["rgb_frames"]
+    out = to_device(frames, meta)
+    assert out.device == meta and out.shape == frames.shape
+    to_device(batches[1]["sound_wave"], meta)
+    assert counts() == [before[0] + 3, before[1] + 2, before[2]]
+    for x in (batches[0]["rgb_crop"], frames.copy(), frames[1:],
+              batches[2]["target"]):
+        to_device(x, meta)
+    assert counts() == [before[0] + 3, before[1] + 2, before[2] + 4]
+    to_device(frames, torch.device("cpu"))
+    assert counts() == [before[0] + 3, before[1] + 2, before[2] + 4]
 
 
 class _Graph:
