@@ -48,7 +48,6 @@ import dataclasses
 import datetime
 import os
 import platform
-import socket
 import tempfile
 import uuid
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -228,15 +227,6 @@ def shutdown() -> None:
     _LAYOUT = None
     if active():
         dist.destroy_process_group()
-
-
-def free_local_url() -> str:
-    """A ``tcp://127.0.0.1:PORT`` URL on a port free now. The port is
-    released on return, so another process can take it before the ranks
-    bind it; ``file_url`` has no such window."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
 
 
 def file_url(directory) -> str:

@@ -1,5 +1,5 @@
 """Timing and accuracy helpers for the port's measurements on the card
-(``chip_smoke.py`` and the kernel tools).
+(``chip_smoke.py``'s kernel timings and the kernel tools).
 
 Peaks are the H100 SXM data sheet's: the bound of a kernel is the larger of
 its bytes over the memory rate and its operations over the peak rate for

@@ -21,7 +21,7 @@ depthwise module's ``pl`` becomes a namespace whose ``pallas_call`` passes
 inside ``tpool_pallas``, so there ``pallas_call`` itself is patched for the
 test. Nothing in the JAX package changes. Float32 unless stated; each
 tolerance sits beside its comparison. The CUDA kernels are held against
-these plain versions on a card (tests/test_torch_gpu.py, chip_smoke.py).
+these plain versions on a card (tests/test_torch_gpu.py).
 """
 
 import functools

@@ -1,28 +1,38 @@
-"""PyTorch port on a CUDA card: the fused epilogue's forward and backward
-kernels, the depthwise kernel (forward and flipped-tap input gradient) and
-the stage-boundary prototype kernel against their plain versions (the
-backward also for its determinism, its plan's sum order, a channel block,
-its kernels in a profile, a replayed graph and its build log), the
-tiny float32 eval and train steps on the card against the CPU, with the
-depthwise flag off and on, the device preprocessing and a tiny
-train_adamml run on the card against the CPU, and the multi-step dispatch's
-replayed CUDA graph against the same steps run as single steps, and
+"""PyTorch port on a CUDA card: the port's card-check suite
+(``chip_smoke.py`` times each kernel alone, holding only what it times to
+its plain version and the two full-width steps it runs to their launch
+counts; the stage shapes and the BN call census here are its own).
+
+The fused epilogue's forward and backward kernels, the depthwise kernel
+(forward and flipped-tap input gradient), the stage-boundary prototype
+kernel and train-mode BN's six kernels against their plain versions (the
+epilogue at the flagship's stage-boundary shapes too; the backward also for
+its determinism, its plan's sum order, a channel block, its kernels in a
+profile, a replayed graph and its build log; BN at every call of a flagship
+main step, and its launches against a step's train-mode BN calls); the
+tiny float32 eval and train steps and forward on the card against the CPU,
+with the depthwise flag off and on; eval capacity's packed rows on the
+card; the device preprocessing; a tiny train_adamml run on the card
+against the CPU, every epoch's epilogue launches counted, and the K = 2
+curriculum's traces each holding one replay; the multi-step dispatch's
+replayed CUDA graph against the same steps run as single steps; and
 SlowFast's 3D convolutions in bf16 channels-last against float32. The
-loader's page-locked batch buffers: a buffer reused only after the copy
-that read it (the stream held before each copy, on the current stream, a
-side stream and a second card), a consumer holding more batches than the
-loader prefetches, and the K = 2 capture while the loader's threads fill
-buffers.
+loader's page-locked batch buffers from torch's caching host allocator: a
+buffer reused only after the copy that read it (the stream held before
+each copy, on the current stream, a side stream and a second card), a
+consumer holding every batch, and the K = 2 capture while the loader's
+threads fill buffers.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, when no
 card is present. The data-parallel checks (parallel/mesh.py): an NCCL
 process group of one, in this process, is the single process bit for bit,
 and holds its collectives in a replayed CUDA graph; gloo refuses a graph;
 two processes sharing the card over gloo match the single process
-(tests/test_torch_multiprocess.py's comparison). The update and memory
-tools (bench_update's rows agree; mem_analysis reads a step's memory and
-its epilogue launches). The file imports no JAX,
-so it also runs on a machine that has only PyTorch:
+(tests/test_torch_multiprocess.py's comparison). The kernel, update and
+memory tools (bench_tpool's and bench_tpool_bwd's rows agree,
+bench_update's rows agree; mem_analysis reads a step's memory and its
+epilogue launches). The file imports no JAX, so it also runs on a machine
+that has only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
@@ -58,6 +68,7 @@ from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
 from adamml_tpu_torch.train.train_state import (EvalState, StageFlags,
                                                 TrainState)
 from adamml_tpu_torch.utils import profiling
+from chip_smoke import BN_BATCH, STAGES, bn_call_hooks, bn_calls, bn_launches
 
 pytestmark = pytest.mark.gpu
 
@@ -82,7 +93,7 @@ def _args(n, f, h, w, c, r, s, dtype, seed=1):
     dict(n=20, f=4, h=3, w=3, c=32, r=2, s=5),
     dict(n=6, f=3, h=4, w=4, c=8, r=1, s=3),
     dict(n=4, f=5, h=2, w=6, c=16, r=2, s=1),
-])
+] + [dict(n=40, f=f, h=h, w=w, c=c, r=1, s=1) for f, h, w, c in STAGES])
 def test_cuda_kernel_matches_plain(shape, dtype):
     _need_card()
     y, ident, a, b = _args(**shape, dtype=dtype)
@@ -122,10 +133,13 @@ BWD_SHAPES = [
     dict(n=4, f=5, h=2, w=6, c=16, r=2, s=1),
     dict(n=10, f=2, h=7, w=7, c=1040, r=1, s=5),  # two channel blocks
 ]
+# the stage boundaries in training (one group a segment: R = 1, S = 5)
+BWD_STAGE_SHAPES = [dict(n=40, f=f, h=h, w=w, c=c, r=1, s=5)
+                    for f, h, w, c in STAGES]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES + BWD_STAGE_SHAPES)
 def test_cuda_bwd_kernel_matches_plain(shape, dtype):
     _need_card()
     y, ident, a, b = _args(**shape, dtype=dtype)
@@ -180,12 +194,14 @@ def _bwd_args(n, f, h, w, c, r, s, dtype, seed=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES + BWD_STAGE_SHAPES[2:])
 def test_cuda_bwd_kernel_is_deterministic_and_follows_its_plan(shape,
                                                                 dtype):
     """Two launches on the same inputs give the same bits, and the
     kernel's per-row sums are bit for bit ``planned_row_sums`` on the CPU:
-    the order ``bwd_plan`` states."""
+    the order ``bwd_plan`` states (at stage 3, whose plan splits the
+    channels into slices; stages 1 and 2 would take the host tens of
+    seconds to emulate)."""
     _need_card()
     args = _bwd_args(**shape, dtype=dtype)
     first = ttp.fused_bn_add_relu_tpool_bwd(*args)
@@ -200,6 +216,19 @@ def test_cuda_bwd_kernel_is_deterministic_and_follows_its_plan(shape,
     cpu = [t.cpu() for t in args]
     assert torch.equal(rows, ttp.planned_row_sums(ttp.routed_dpre(*cpu),
                                                   cpu[0], plan))
+
+
+def test_cuda_fwd_channel_block_is_bit_identical():
+    """The forward kernel on the upper channel block [C/2, C) of the
+    stage-2 shape (the JAX kernel's shard-local channel block,
+    tests/test_tpool_sharded.py's 2-D mesh), made contiguous, with the
+    affine's slice: bit for bit that block of its full-C launch."""
+    _need_card()
+    args = _args(40, 4, 28, 28, 512, 1, 5, torch.bfloat16)
+    whole = ttp.fused_bn_add_relu_tpool(*args)
+    got = ttp.fused_bn_add_relu_tpool(
+        *(t[..., 256:].contiguous() for t in args))
+    assert torch.equal(got, whole[..., 256:].contiguous())
 
 
 def test_cuda_bwd_channel_block_is_bit_identical():
@@ -218,17 +247,21 @@ def test_cuda_bwd_channel_block_is_bit_identical():
 def test_cuda_bwd_one_call_puts_the_planned_kernels(tmp_path):
     """One backward launch at the stage-3 train shape puts the plan's
     kernels on the card (torch.profiler): one, named for the kernel (the
-    call then sums its rows per group in plain PyTorch)."""
+    memset of its tickets is no kernel); the whole call puts as many
+    beside the plain per-group sum of its rows."""
     _need_card()
     args = _bwd_args(40, 2, 14, 14, 1024, 1, 5, torch.bfloat16)
     ttp.fused_bn_add_relu_tpool_bwd(*args)
     got = _device_kernels(lambda: ttp._launch_bwd_rows(*args),
                           tmp_path / "bwd.json")
+    call = _device_kernels(lambda: ttp.fused_bn_add_relu_tpool_bwd(*args),
+                           tmp_path / "call.json")
     want = ttp.bwd_plan(40, 2, 14, 14, 1024, 2,
                         torch.cuda.get_device_properties(
                             0).multi_processor_count)["kernels"]
     assert len(got) == want and all("tpool_fused_bwd_kernel" in k
                                     for k in got), got
+    assert sum("tpool_fused_bwd_kernel" in k for k in call) == want, call
 
 
 def test_cuda_bwd_graph_replay_equals_eager():
@@ -304,6 +337,10 @@ BN_SHAPES = {
 
 def _bn_case(case, dtype, seed=7):
     shape, r, s, si = BN_SHAPES[case]
+    return _bn_inputs(tbn.geometry(shape, r, s, si), shape, dtype, seed)
+
+
+def _bn_inputs(geom, shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     c = shape[-1]
     x = (0.5 + torch.randn(shape, generator=g, device="cuda")
@@ -313,7 +350,7 @@ def _bn_case(case, dtype, seed=7):
     bias = 0.1 * torch.randn(c, generator=g, device="cuda")
     running = (0.3 * torch.randn(c, generator=g, device="cuda"),
                1 + torch.rand(c, generator=g, device="cuda"))
-    return tbn.geometry(shape, r, s, si), x, dy, w, bias, running
+    return geom, x, dy, w, bias, running
 
 
 def _within(got, want, bound, what):
@@ -342,7 +379,12 @@ def test_cuda_bn_kernels_match_plain(case, dtype):
     magnitudes), and so within 1e-6 of those magnitudes in bf16 too where
     the terms cancel."""
     _need_card()
-    geom, x, dy, w, bias, running = _bn_case(case, dtype)
+    _bn_kernels_within(*_bn_case(case, dtype), dtype)
+
+
+def _bn_kernels_within(geom, x, dy, w, bias, running, dtype):
+    """test_cuda_bn_kernels_match_plain's checks on these inputs, and the
+    kernels' launches they make."""
     unbias, m, eps = _bn_args(geom)
     before = dict(tbn.launch_counts)
 
@@ -401,6 +443,74 @@ def test_cuda_bn_kernels_match_plain(case, dtype):
     counts = {k: tbn.launch_counts[k] - before[k] for k in tbn.KERNELS}
     assert counts == {"bn_stats": 1, "bn_finalize": 1, "bn_apply": 1,
                       "bn_grad_sums": 1, "bn_grad_finalize": 2, "bn_dx": 2}
+
+
+def _flagship_bn_calls(phase, batch):
+    """Every train-mode BN call of one flagship step of ``phase`` at
+    ``batch`` clips, after a warm-up step (``bn_call_hooks``),
+    with the BN kernels' launches of that step and the model's state
+    before the warm-up and after the step."""
+    cfg = flagship_cfg()
+    model, _ = build_model(cfg)
+    state = TrainState(
+        build_optimizer("main", cfg.optim, model.main_net.parameters()),
+        build_optimizer("policy", cfg.optim, model.policy_net.parameters()))
+    step = make_adamml_train_step(
+        model, flags=(StageFlags.main_phase() if phase == "main"
+                      else StageFlags.policy_phase()),
+        penalty_type="blockdrop", gammas=10.0, clip_gradient=None)
+    target = torch.arange(batch, device="cuda") % cfg.model.num_classes
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    args = (1e-3, 1e-2, [1.0, 0.05])
+    step(state, example_inputs(cfg, batch=batch, seed=300), target, *args,
+         seed=0)
+    calls, hooks = bn_call_hooks(model)
+    torch.cuda.synchronize()
+    before = dict(tbn.launch_counts)
+    step(state, example_inputs(cfg, batch=batch, seed=301), target, *args,
+         seed=1)
+    torch.cuda.synchronize()
+    launches = {k: tbn.launch_counts[k] - before[k] for k in tbn.KERNELS}
+    for h in hooks:
+        h.remove()
+    end = {k: v.clone() for k, v in model.state_dict().items()}
+    return calls, launches, start, end, dict(model.named_parameters())
+
+
+@pytest.mark.parametrize("phase", ["main", "policy"])
+def test_bn_launches_match_the_steps_bn_calls(phase):
+    """A flagship step of each phase at 2 clips (--sync-bn, no process
+    group) launches the BN kernels its train-mode BN calls make
+    (``bn_launches``); over the warm-up and that step every live parameter
+    moves and no frozen one, and both subnets' BN statistics move."""
+    _need_card()
+    calls, launches, start, end, params = _flagship_bn_calls(phase, 2)
+    assert sum(calls.values()) > 0
+    assert launches == bn_launches(calls)
+    live = f"{phase}_net."
+    moved = {k: not torch.equal(start[k], end[k]) for k in params}
+    assert all(v for k, v in moved.items() if k.startswith(live)), [
+        k for k, v in moved.items() if k.startswith(live) and not v]
+    assert not any(v for k, v in moved.items() if not k.startswith(live))
+    stats = {k.split("_net.")[0] for k in start
+             if k.endswith("running_mean")
+             and not torch.equal(start[k], end[k])}
+    assert stats == {"main", "policy"}, stats
+
+
+def test_cuda_bn_kernels_match_plain_at_every_call_of_a_step():
+    """The BN kernels at every distinct geometry of the train-mode BN calls
+    of one flagship main-phase step at 18 clips (the batch
+    chip_smoke.py times them at), bf16: test_cuda_bn_kernels_match_plain's
+    checks on each."""
+    _need_card()
+    calls, _ = bn_calls(torch.device("cuda", 0), BN_BATCH)
+    geoms = sorted({key[0] for key in calls}, key=lambda g: (g.n, g.p, g.c))
+    assert geoms
+    for i, geom in enumerate(geoms):
+        shape = (geom.n, geom.p, geom.c)
+        _bn_kernels_within(*_bn_inputs(geom, shape, torch.bfloat16, i),
+                           torch.bfloat16)
 
 
 def _bn_step(bn, x, dy, sq, si, return_affine):
@@ -839,15 +949,24 @@ def test_tiny_dw_eval_step_on_card_matches_cpu():
     _tiny_eval_step(use_pallas_dw=True)
 
 
+def test_tiny_forward_on_card_matches_cpu(monkeypatch):
+    _tiny_forward(False, monkeypatch)
+
+
 def test_tiny_dw_forward_on_card_matches_cpu(monkeypatch):
-    """use_pallas_dw=True, float32, TF32 off: the policy net's logits (both
-    trunks) and the main net's under fixed decisions, on the card and on
-    the CPU from the same weights, within 1e-3; 51 depthwise launches."""
+    _tiny_forward(True, monkeypatch)
+
+
+def _tiny_forward(use_pallas_dw, monkeypatch):
+    """Float32, TF32 off: the policy net's logits (both trunks) and the
+    main net's under fixed decisions, on the card and on the CPU from the
+    same weights, within 1e-3; with use_pallas_dw=True 51 depthwise
+    launches, without it none."""
     _need_card()
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = flagship_cfg(tiny=True)
-    cfg.model.use_pallas_dw = True
+    cfg.model.use_pallas_dw = use_pallas_dw
     cpu, _ = build_model(cfg, device="cpu")
     gpu, _ = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -866,13 +985,123 @@ def test_tiny_dw_forward_on_card_matches_cpu(monkeypatch):
                 [a.reshape((n * s,) + tuple(a.shape[2:])) for a in xs],
                 dec.to(dev), seq_groups=s)
         outs.append((p_logits.cpu(), m_logits.cpu()))
-    assert _dw_counts()[0] - before[0] == 51
+    assert _dw_counts()[0] - before[0] == (51 if use_pallas_dw else 0)
     for got, want in zip(*outs):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3)
 
 
+def test_dw_eval_step_puts_at_most_5_more_kernels(tmp_path):
+    """The flagship eval step (2 clips) with use_pallas_dw=True puts at
+    most 5 more kernels on the card than without it (torch.profiler, after
+    a warm-up call): each depthwise layer is one kernel, where cuDNN's
+    depthwise convolution puts one or more."""
+    _need_card()
+    kernels = {}
+    for flag in (False, True):
+        cfg = flagship_cfg()
+        cfg.model.use_pallas_dw = flag
+        model, _ = build_model(cfg)
+        step = make_adamml_eval_step(model)
+        x = example_inputs(cfg, batch=2, seed=100)
+        target = torch.zeros(2, dtype=torch.long, device="cuda")
+        step(EvalState(), x, target, seed=0)
+        kernels[flag] = len(_device_kernels(
+            lambda: step(EvalState(), x, target, seed=1),
+            tmp_path / f"dw_{flag}.json"))
+        del model, step
+    assert kernels[True] - kernels[False] <= 5, kernels
+
+
+# (eval_capacity, capacity_groups)
+CAPACITIES = [(1.0, 1), (0.5, 1), (0.25, 1), (0.5, 2)]
+
+
+def _packed_rows(fn):
+    """(the row counts of the forward epilogue's launches in ``fn``, what
+    ``fn`` returns): the launcher is wrapped while ``fn`` runs."""
+    rows, real = [], ttp._launch
+
+    def launch(y, *args):
+        rows.append(int(y.shape[0]))
+        return real(y, *args)
+    ttp._launch = launch
+    try:
+        out = fn()
+    finally:
+        ttp._launch = real
+    return rows, out
+
+
+@pytest.mark.parametrize("capacity,groups", CAPACITIES,
+                         ids=[f"c{c}_G{g}" for c, g in CAPACITIES])
+def test_eval_capacity_packs_on_the_card(capacity, groups):
+    """The tiny config's main net at eval capacity ``capacity`` in
+    ``groups`` blocks of its 16 rows, the decisions forced to select at
+    most cap rows a block (cap - 1 in the second modality): the forward
+    epilogue launches on the packed row count at each stage boundary that
+    pools, and the logits lie within 2% of the largest logit of the
+    unpacked net's masked logits on the same weights (the backbones on
+    fewer rows may take other cuDNN algorithms). The eval step with the
+    policy's own decisions gives finite logits, and validate's
+    capacity_dropped equals a count made here from its selections."""
+    _need_card()
+    from adamml_tpu_torch.train.engine import validate
+
+    base_cfg = flagship_cfg(tiny=True)
+    base, _ = build_model(base_cfg)
+    s, batch = base_cfg.model.num_segments, 8
+    rows = batch * s
+    pools = sum(base_cfg.model.groups >> i > 1 for i in range(3))
+    x = example_inputs(base_cfg, batch=batch, seed=600)
+    m_x = [a.reshape((rows,) + tuple(a.shape[2:])) for a in x]
+    gen = torch.Generator(device="cuda").manual_seed(601)
+    target = torch.randint(0, base_cfg.model.num_classes, (batch,),
+                           generator=gen, device="cuda")
+    cfg = flagship_cfg(tiny=True)
+    cfg.model.eval_capacity, cfg.model.capacity_groups = capacity, groups
+    model, _ = build_model(cfg)
+    model.load_state_dict(base.state_dict())
+    bl = rows // groups
+    cap = max(1, int(round(capacity * bl)))
+    dec = torch.zeros((2, rows), device="cuda")
+    for m in range(2):
+        for b in range(groups):
+            pick = torch.randperm(bl, generator=gen, device="cuda")[
+                :max(1, min(cap, bl) - m)]
+            dec[m, b * bl + pick] = 1.0
+    with torch.no_grad():
+        got_rows, packed = _packed_rows(
+            lambda: model.main_net(m_x, dec, seq_groups=s))
+        want = base.main_net(m_x, dec, seq_groups=s)
+    torch.cuda.synchronize()
+    n_run = rows if capacity >= 1.0 else groups * cap
+    assert got_rows == [n_run] * pools
+    assert bool(torch.isfinite(packed).all())
+    assert float((packed - want).abs().max()) <= 0.02 * max(
+        float(want.abs().max()), 1.0)
+
+    step = make_adamml_eval_step(model)
+    logits, _, _ = step(EvalState(), x, target, seed=0)
+    assert bool(torch.isfinite(logits).all())
+    batches = [0, 1]
+    v = validate(batches, lambda b: (x, target), step, EvalState(),
+                 seed=11, modality=["rgb", "sound"], adamml=True,
+                 num_segments=s, eval_capacity=capacity,
+                 capacity_groups=groups)
+    host = [0, 0]
+    for sel in np.split(v["all_selections"], len(batches)):
+        flat = sel.reshape(rows, 2)
+        for m in range(2):
+            for b in range(groups):
+                on = int(flat[b * bl:(b + 1) * bl, m].sum())
+                host[m] += max(0, on - cap) if capacity < 1.0 else 0
+    counted = v.get("capacity_dropped", {"rgb": 0, "sound": 0})
+    assert [counted["rgb"], counted["sound"]] == host
+
+
 def _st_zero_noise(generator, logits, tau):
-    """Zero-noise straight-through decision: no generator stream."""
+    """Zero-noise straight-through decision: no generator stream, so the
+    card and the CPU take the same decisions."""
     y = torch.softmax(logits / tau, dim=-1)
     hard = (logits.argmax(-1) == 1).float()
     return hard + y[..., 1] - y[..., 1].detach()
@@ -953,14 +1182,6 @@ def test_tiny_dw_train_step_on_card_matches_cpu(phase, monkeypatch):
     _tiny_train_step(phase, True, monkeypatch)
 
 
-def _st_zero_noise(generator, logits, tau):
-    """Zero-noise straight-through decision: no generator stream, so the
-    card and the CPU take the same decisions."""
-    y = torch.softmax(logits / tau, dim=-1)
-    hard = (logits.argmax(-1) == 1).float()
-    return hard + y[..., 1] - y[..., 1].detach()
-
-
 def test_preprocess_on_card_matches_cpu(monkeypatch):
     """One synthetic batch of all four modalities (train crops and flips,
     then 3 oversample crops) through make_batch_preprocessor on the card
@@ -988,46 +1209,126 @@ def test_preprocess_on_card_matches_cpu(monkeypatch):
             assert float((a - b).abs().max()) <= 1e-3, m
 
 
+# train_adamml at the tiny settings (4 frames: 2 stage boundaries pool)
+TINY_CLI = ("--dataset synthetic --modality rgb sound -d 18 --groups 4 "
+            "--num_segments 2 --dense_sampling --val_num_clips 2 -b 8 "
+            "--epochs 1 --warmup_epochs 1 --finetune_epochs 1 "
+            "--input_size 32 --audio_length 0.16 "
+            "--causality_modeling lstm --cost_weights 1.0 0.05 "
+            "--compute_dtype float32 --scale_range 36 48 -j 2 --dropout 0 "
+            "--lr_scheduler multisteps --lr_steps 1 --seed 5").split()
+# the curriculum's passes: warmup, main, policy, validation, finetune,
+# validation, as (kind, trains the policy)
+CURRICULUM = [("train", False), ("train", False), ("train", True),
+              ("val", False), ("train", False), ("val", False)]
+
+
+def _probe_epochs(monkeypatch) -> list:
+    """Wrap the curriculum's train_epoch and validate while a CLI runs:
+    each pass's kind, whether it trains the policy (its cost weights), its
+    summary, and the epilogue's (forward, backward) launches."""
+    epochs = []
+
+    def wrap(kind, fn):
+        def run(*args, **kwargs):
+            before = (ttp.launch_counts[ttp.KERNEL],
+                      ttp.launch_counts[ttp.KERNEL_BWD])
+            out = fn(*args, **kwargs)
+            epochs.append(dict(
+                kind=kind, policy=any(kwargs.get("cost_weights") or []),
+                summary=out[1] if kind == "train" else out,
+                launches=(ttp.launch_counts[ttp.KERNEL] - before[0],
+                          ttp.launch_counts[ttp.KERNEL_BWD] - before[1])))
+            return out
+        return run
+
+    monkeypatch.setattr(cur, "train_epoch", wrap("train", cur.train_epoch))
+    monkeypatch.setattr(cur, "validate", wrap("val", cur.validate))
+    return epochs
+
+
+def _check_epochs(epochs, pools, steps=None, batch=8):
+    """Per pass: a finite loss, selection rates in [0, 1], and ``pools``
+    forward epilogue launches a forward pass (a train step or a val batch
+    of ``batch`` clips), as many backward a step that trains the main net;
+    ``steps`` the host-launched steps of a train pass (its batches when
+    None)."""
+    for i, e in enumerate(epochs):
+        s = e["summary"]
+        assert np.isfinite(s["loss"]), (i, s["loss"])
+        assert all(0.0 <= v <= 1.0 for v in s["selection"].values()), i
+        if e["kind"] == "train":
+            n = s["num_batch"] if steps is None else steps
+            want = (pools * n, 0 if e["policy"] else pools * n)
+        else:
+            want = (pools * -(-len(s["outputs"]) // batch), 0)
+        assert e["launches"] == want, (i, e["kind"], e["launches"], want)
+
+
 def test_tiny_cli_on_card_matches_cpu(monkeypatch, tmp_path):
     """train_adamml.main at the tiny settings on the card and on the CPU,
     float32, dropout 0, zero-noise decisions, TF32 off: the warmup epoch's
-    loss (the same weights and batch) within 1e-3 relative; every epoch's
-    loss finite; the same artifacts; the epilogue kernels launched on the
-    card (2 stage boundaries at 4 frames)."""
+    loss (the same weights and batch) within 1e-3 relative; the
+    curriculum's passes in order; every epoch's loss finite and selection
+    rates in [0, 1]; the same artifacts; on the card every pass's epilogue
+    launches (2 stage boundaries at 4 frames; ``_check_epochs``), none on
+    the CPU."""
     _need_card()
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(tpolicy, "gumbel_decision", _st_zero_noise)
-    argv = ("--dataset synthetic --modality rgb sound -d 18 --groups 4 "
-            "--num_segments 2 --dense_sampling --val_num_clips 2 -b 8 "
-            "--epochs 1 --warmup_epochs 1 --finetune_epochs 1 "
-            "--input_size 32 --audio_length 0.16 --synthetic_length 8 "
-            "--causality_modeling lstm --cost_weights 1.0 0.05 "
-            "--compute_dtype float32 --scale_range 36 48 -j 2 --dropout 0 "
-            "--lr_scheduler multisteps --lr_steps 1 --seed 5").split()
-    losses = {}
-    train_epoch = cur.train_epoch
-
-    def rec(*args, **kw):
-        state, s = train_epoch(*args, **kw)
-        losses.setdefault(dev, []).append(s["loss"])
-        return state, s
-
-    monkeypatch.setattr(cur, "train_epoch", rec)
-    names = {}
+    argv = TINY_CLI + ["--synthetic_length", "8"]
+    names, epochs = {}, {}
     for dev in ("cuda", "cpu"):
-        before = dict(ttp.launch_counts)
-        assert train_adamml.main(argv + ["--logdir", str(tmp_path / dev)],
-                                 device=dev) == 0
-        launched = ttp.launch_counts[ttp.KERNEL] - before[ttp.KERNEL]
-        assert (launched > 0) == (dev == "cuda")
+        with monkeypatch.context() as m:
+            epochs[dev] = _probe_epochs(m)
+            assert train_adamml.main(argv + ["--logdir", str(tmp_path / dev)],
+                                     device=dev) == 0
         folder = next(p for p in (tmp_path / dev).iterdir())
         names[dev] = {p.name for p in folder.iterdir()}
     assert names["cuda"] == names["cpu"]
-    assert len(losses["cuda"]) == len(losses["cpu"]) == 4
-    assert all(np.isfinite(losses["cuda"]))
+    for dev in ("cuda", "cpu"):
+        assert [(e["kind"], e["policy"]) for e in epochs[dev]] == CURRICULUM
+    _check_epochs(epochs["cuda"], pools=2)
+    _check_epochs(epochs["cpu"], pools=0)
+    losses = {dev: [e["summary"]["loss"] for e in ep if e["kind"] == "train"]
+              for dev, ep in epochs.items()}
     assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-3 * abs(
         losses["cpu"][0])
+
+
+def test_multi_step_curriculum_traces_one_replay_a_pass(monkeypatch,
+                                                        tmp_path):
+    """train_adamml at the tiny settings with --steps_per_dispatch 2
+    --eval_capacity 0.5 --profile_dir on 48 videos (6 batches a pass): the
+    curriculum's passes in order; a train pass launches from the host the
+    epilogue kernels of the first dispatch's 2 single steps and of the
+    capture's 2 steps (its replays launch from the graph), a validation
+    pass those of each packed batch; and each of the 4 train passes'
+    traces (whole dispatches from loader index 2K on) holds one replay of
+    K = 2 steps: 2 x 2 forward epilogue kernels, as many backward unless
+    the pass trains the policy."""
+    _need_card()
+    k, pools = 2, 2
+    traces = tmp_path / "traces"
+    argv = TINY_CLI + ["--synthetic_length", "48", "--steps_per_dispatch",
+                       str(k), "--eval_capacity", "0.5", "--profile_dir",
+                       str(traces), "--logdir", str(tmp_path / "logs")]
+    epochs = _probe_epochs(monkeypatch)
+    assert train_adamml.main(argv, device="cuda") == 0
+    assert [(e["kind"], e["policy"]) for e in epochs] == CURRICULUM
+    assert all(e["summary"]["num_batch"] == 6 for e in epochs
+               if e["kind"] == "train")
+    _check_epochs(epochs, pools, steps=2 * k)
+    files = sorted(traces.glob("*.pt.trace.json"))
+    assert len(files) == 4, files
+    for path, policy in zip(files, (False, False, True, False)):
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        got = (sum("tpool_fused_kernel" in n for n in names),
+               sum("tpool_fused_bwd_kernel" in n for n in names))
+        assert got == (k * pools, 0 if policy else k * pools), (path, got)
 
 
 def test_native_and_pil_decode_on_the_card_host(tmp_path):
@@ -1078,14 +1379,15 @@ def _train_restore(model, state, snap):
 
 
 def _replay_vs_single_steps(phase: str, use_pallas_dw: bool,
-                            sync_bn: bool = True):
+                            sync_bn: bool = True, trace=None):
     """The tiny float32 config, K = 2: the first dispatch runs 2 single
     steps, the second captures the CUDA graph and replays it; from the
     snapshot between them 2 calls of make_adamml_train_step (the plain
     single step that K = 1 runs) leave the same parameters, BN statistics,
     optimizer state, step and metrics, bit for bit. Later dispatches
     replay; new optimizers run single steps again (the curriculum's stage
-    boundaries)."""
+    boundaries). With ``trace`` (a path), the third dispatch, a replay, is
+    profiled there and the names of its kernels returned."""
     cfg = flagship_cfg(tiny=True)
     cfg.model.use_pallas_dw = use_pallas_dw
     cfg.runtime.sync_bn = sync_bn
@@ -1125,7 +1427,13 @@ def _replay_vs_single_steps(phase: str, use_pallas_dw: bool,
                 assert torch.equal(a[p][k], b[p][k]), k
     for k in want_m:
         assert torch.equal(got_m[k], want_m[k]), k
-    multi(state, *batches(30), *args, 5)
+    xs, ts = batches(30)
+    names = None
+    if trace is None:
+        multi(state, xs, ts, *args, 5)
+    else:
+        names = _device_kernels(lambda: multi(state, xs, ts, *args, 5),
+                                trace)
     assert (multi.eager_dispatches, multi.replays) == (1, 2)
     state.main_opt = build_optimizer("main", cfg.optim,
                                      model.main_net.parameters())
@@ -1133,6 +1441,7 @@ def _replay_vs_single_steps(phase: str, use_pallas_dw: bool,
                                        model.policy_net.parameters())
     multi(state, *batches(40), *args, 6)
     assert (multi.eager_dispatches, multi.replays) == (2, 2)
+    return names
 
 
 @pytest.mark.parametrize("phase", ["main", "policy"])
@@ -1147,12 +1456,26 @@ def test_multi_step_replay_equals_eager(phase, monkeypatch):
 
 
 @pytest.mark.parametrize("phase", ["main", "policy"])
-def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch):
+def test_multi_step_replay_with_depthwise_kernel(phase, monkeypatch,
+                                                 tmp_path):
     """As above with use_pallas_dw=True: the depthwise kernel (and in the
-    policy phase the trunks' remat) under capture."""
+    policy phase the trunks' remat) under capture. A replay of K = 2 steps
+    puts on the card (torch.profiler) K times one step's epilogue kernels
+    (forward at each stage boundary that pools, backward too in the main
+    phase) and its depthwise kernels (DW_STEP, forward and stride-1 input
+    gradient)."""
     _need_card()
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    _replay_vs_single_steps(phase, use_pallas_dw=True)
+    names = _replay_vs_single_steps(phase, use_pallas_dw=True,
+                                    trace=tmp_path / "replay.json")
+    k = 2
+    pools = sum(flagship_cfg(tiny=True).model.groups >> i > 1
+                for i in range(3))
+    got = (sum("tpool_fused_kernel" in n for n in names),
+           sum("tpool_fused_bwd_kernel" in n for n in names),
+           sum("dw3x3_kernel" in n for n in names))
+    assert got == (k * pools, k * pools if phase == "main" else 0,
+                   k * sum(DW_STEP[phase])), got
 
 
 class _SlowSamples:
@@ -1175,9 +1498,10 @@ class _NoCard:
         return False
 
 
-def _ring_loader(batches, *, seconds=0.0, prefetch=2, canvas=(64, 96)):
-    """(a loader over the card's ring of page-locked buffers, the same
-    loader's batches as new numpy arrays)."""
+def _pinned_loader(batches, *, seconds=0.0, prefetch=2, canvas=(64, 96)):
+    """(a loader whose batches come in page-locked buffers from torch's
+    caching host allocator, the same loader's batches as new numpy
+    arrays)."""
     out = []
     for pinned in (None, _NoCard()):
         ds = SyntheticVideoDataset(["rgb", "sound"], length=4 * batches,
@@ -1208,7 +1532,7 @@ def _host_blocks():
     return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
 
 
-def test_ring_reuses_buffers_only_after_their_copies():
+def test_pinned_buffers_reused_only_after_their_copies():
     """The stream held (``torch.cuda._sleep``) before each copy, so that
     the loader runs ahead of the card, and each batch dropped once its
     large arrays are enqueued; the host waits for the card every fourth
@@ -1218,7 +1542,7 @@ def test_ring_reuses_buffers_only_after_their_copies():
     page-locked buffer (``data.h2d.direct``), none through a staged copy,
     and the loader asked for one batch's buffers a batch."""
     _need_card()
-    ld, want = _ring_loader(16)
+    ld, want = _pinned_loader(16)
     before, blocks = _counts(*NAMES), _host_blocks()
     copies = []
     for i, batch in enumerate(ld):
@@ -1239,7 +1563,7 @@ def test_ring_reuses_buffers_only_after_their_copies():
 
 
 @pytest.mark.parametrize("where", ["side-stream", "second-card"])
-def test_ring_orders_reuse_after_a_copy_on_another_stream(where):
+def test_pinned_buffer_reuse_waits_for_a_copy_on_another_stream(where):
     """Each batch copied on a stream other than the current one, held
     (``torch.cuda._sleep``) before the copy, then dropped: a side stream of
     the current card, or the current stream of a second card while the
@@ -1262,7 +1586,7 @@ def test_ring_orders_reuse_after_a_copy_on_another_stream(where):
         assert torch.cuda.current_device() == 0
         return to_device(x, dev)
 
-    ld, want = _ring_loader(16)
+    ld, want = _pinned_loader(16)
     copies = []
     for batch in ld:
         copies += [copy(batch[k]) for k in ld._large]
@@ -1274,11 +1598,11 @@ def test_ring_orders_reuse_after_a_copy_on_another_stream(where):
             assert next(got).cpu().numpy().tobytes() == w[k].tobytes(), k
 
 
-def test_ring_consumer_holding_more_batches_than_the_ring():
+def test_pinned_buffers_for_a_consumer_holding_every_batch():
     """``list(loader)`` holds every batch: a buffer each at least, all
     intact, and each copied to the card intact after the pass."""
     _need_card()
-    ld, want = _ring_loader(12)
+    ld, want = _pinned_loader(12)
     before = _counts(*NAMES)
     kept = list(ld)
     assert _counts(*NAMES)[2] - before[2] == 12
@@ -1304,7 +1628,7 @@ def test_multi_step_capture_while_the_loader_fills(monkeypatch):
     taken after them are intact."""
     _need_card()
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    ld, want = _ring_loader(24, seconds=0.05, prefetch=6, canvas=(256, 464))
+    ld, want = _pinned_loader(24, seconds=0.05, prefetch=6, canvas=(256, 464))
     it = iter(ld)
     first = [next(it) for _ in range(9)]
     del first
@@ -1411,7 +1735,9 @@ def test_gloo_refuses_a_captured_graph(group_of_one):
 def test_two_ranks_share_the_card(sync_bn, tmp_path):
     """Two processes on cuda:0 over gloo, the tiny flagship's main and
     policy steps on 4 rows each of a global 8: both ranks bit-identical,
-    and within tests/test_torch_multiprocess.py's tolerances of the single
+    each launching the fused epilogue's kernels at its 2 stage boundaries
+    that pool (forward in both steps, backward in the main step), and
+    within tests/test_torch_multiprocess.py's tolerances of the single
     process at bn_groups 2 (1 under --sync-bn), cuDNN deterministic."""
     _need_card()
     from test_torch_multiprocess import LR, P_LR_K, _launch, check_compare
@@ -1420,6 +1746,9 @@ def test_two_ranks_share_the_card(sync_bn, tmp_path):
                          batch=8, lr=LR, p_lr=P_LR_K, rtol=1e-4)
     assert results[0]["digests"] == results[1]["digests"]
     assert results[0]["synced"] is results[1]["synced"] is sync_bn
+    for r in results:
+        assert (r["launches"][ttp.KERNEL],
+                r["launches"][ttp.KERNEL_BWD]) == (4, 2), r["launches"]
     for i, c in enumerate(results[0]["compare"]):
         check_compare(c, i)
 
@@ -1457,6 +1786,34 @@ def test_mem_analysis_main_phase_on_the_card():
     assert r["arguments"]["optimizer_state"] > 0
     assert r["launches"] == {ttp.KERNEL: 3, ttp.KERNEL_BWD: 3}
     assert len(r["top_blocks"]) == mem_analysis.TOP
+
+
+@pytest.mark.parametrize("phase,fused", [("policy", 1), ("main", 0),
+                                         ("policy", 0)])
+def test_mem_analysis_launches_on_the_card(phase, fused):
+    """--batch 2 in the other phase and with --fused_tpool 0: a peak above
+    the step's arguments, and the fused epilogue's launches in the step (3
+    forward and, in the main phase, 3 backward; none unfused)."""
+    _need_card()
+    from adamml_tpu_torch.tools import mem_analysis
+
+    r = mem_analysis.run(torch.device("cuda", 0), phase=phase, batch=2,
+                         fused_tpool=fused)
+    assert r["peak_bytes"] > r["arguments_bytes"] > 0
+    want = (3 * fused, 3 * fused if phase == "main" else 0)
+    assert (r["launches"][ttp.KERNEL], r["launches"][ttp.KERNEL_BWD]) == want
+
+
+def test_bench_tpool_rows_agree_on_the_card():
+    """tools/bench_tpool.py at batch 2: the prototype kernel's rows within
+    one bf16 ulp of its plain version at the three stage shapes."""
+    _need_card()
+    from adamml_tpu_torch.tools import bench_tpool
+
+    rows = bench_tpool.run(torch.device("cuda", 0), batch=2)
+    kernel = [r for r in rows if r["row"] == "kernel"]
+    assert [r["stage"] for r in kernel] == ["stage1", "stage2", "stage3"]
+    assert all(r["within_1ulp_of_plain"] for r in kernel), kernel
 
 
 @pytest.mark.parametrize("phase", ["main", "policy"])

@@ -4,7 +4,7 @@ backward and its wrapper against the JAX package's Pallas kernels.
 On the CPU the JAX kernels run in Pallas interpret mode, as
 tests/test_pallas.py runs them; the port's plain versions run in float32.
 The CUDA kernels themselves are compared with the plain versions only on a
-card, in tests/test_torch_gpu.py and in chip_smoke.py.
+card, in tests/test_torch_gpu.py.
 """
 
 import numpy as np

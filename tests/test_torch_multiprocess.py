@@ -115,6 +115,7 @@ def full_tensors(model):
 _WORKER = HEADER + r'''
 if task == "steps":
     from adamml_tpu_torch.models import model_builder as mb
+    from adamml_tpu_torch.ops.kernels import tpool_fused
     from adamml_tpu_torch.train.optim import build_optimizer
     from adamml_tpu_torch.train.steps import make_adamml_train_step
     from adamml_tpu_torch.train.train_state import StageFlags, TrainState
@@ -166,12 +167,15 @@ if task == "steps":
     model, _ = mb.build_model(cfg, dev)
     mine = run(model, [a[d * n:(d + 1) * n] for a in x],
                target[d * n:(d + 1) * n])
+    # the fused epilogue's kernel launches of this rank's two steps (none
+    # on the CPU)
+    launches = dict(tpool_fused.launch_counts)
     synced = all(getattr(m_, "sync", False) for m_ in model.modules()
                  if hasattr(m_, "running_mean"))
     mesh.shutdown()
     digests = [digest(list(end.values()) + list(m.values()))
                for _, m, end in mine]
-    report(digests=digests, synced=synced)
+    report(digests=digests, synced=synced, launches=launches)
     if rank == 0:
         # the single process on the global batch, each phase from the
         # 2-rank run's start of that phase, compared here (the tiny
@@ -209,7 +213,8 @@ if task == "steps":
                     c["close"] += int((d <= 0.1 * p_lr).sum())
                     c["total"] += d.numel()
             cmp.append(c)
-        report(digests=digests, synced=synced, compare=cmp)
+        report(digests=digests, synced=synced, launches=launches,
+               compare=cmp)
 
 elif task == "unimodal":
     from adamml_tpu_torch.train.curriculum import UnimodalTrainer

@@ -291,7 +291,8 @@ def test_group_of_one_is_the_single_process(phase, group_of_one):
     """World size 1 in a process group: the gradient all-reduce, the
     synchronized BN moments (the flagship's --sync-bn), the metric average
     and the noise draws run, and the step is the one without a group, bit
-    for bit (the CPU counterpart of chip_smoke.py's NCCL check)."""
+    for bit (the CPU counterpart of tests/test_torch_gpu.py::
+    test_nccl_group_of_one_is_the_single_process)."""
     assert (group_of_one.world, group_of_one.rank,
             group_of_one.backend) == (1, 0, "gloo")
     got_m, got, synced = _tiny_step(phase)

@@ -282,10 +282,30 @@ elif task == "clip":
 
 elif task == "checkpoints":
     # (a) written at M = 2, loaded at M = 1; (b) the parent's M = 1
-    # checkpoint resumed at M = 2
+    # checkpoint resumed at M = 2; (c) that checkpoint grafted by
+    # --pretrained at M = 2 and at M = 1, then one eval step on each
     from adamml_tpu_torch.ckpt.checkpoint import (load_checkpoint,
                                                   read_checkpoint,
                                                   save_checkpoint)
+    from adamml_tpu_torch.ckpt.pretrained import load_pretrained_adamml
+
+    def graft(model):
+        """(the graft's count, [each sharded tensor holds its rows of the
+        saved value], [each other tensor the saved value], the eval step's
+        logits and decisions on x as lists)."""
+        estate = EvalState(temperature=-1.0)
+        n = load_pretrained_adamml(model, estate, args["m1"])
+        sd, params = model.state_dict(), dict(model.named_parameters())
+        rows, full = [], []
+        for name, v in payload["model"].items():
+            sh = mesh.param_shard(params[name]) if name in params else None
+            (rows if sh is not None else full).append(bool(torch.equal(
+                sd[name], sh.rows(v) if sh is not None else v)))
+        logits, dec, _ = make_adamml_eval_step(model)(estate, x, target, 0)
+        return dict(grafted=n, rows=rows, full=full,
+                    temperature=estate.temperature,
+                    logits=logits.tolist(), decisions=dec.tolist())
+
     cfg = flagship_cfg(tiny=True)
     join(cfg)
     model, _ = mb.build_model(cfg, dev)
@@ -329,9 +349,12 @@ elif task == "checkpoints":
         (rows if sh is not None else full_rows).append(
             bool(torch.equal(got, sh.rows(v) if sh is not None else v)))
     sharded = sharded_names(resumed)
+    pretrained = graft(mb.build_model(cfg, dev)[0])
     mesh.shutdown()
-    res = dict(rows=rows, full=full_rows, sharded=sharded)
+    res = dict(rows=rows, full=full_rows, sharded=sharded,
+               pretrained=pretrained)
     if rank == 0:
+        res["pretrained_m1"] = graft(mb.build_model(cfg, dev)[0])
         # (a): the single process loads the M = 2 checkpoint
         single, _ = mb.build_model(cfg, dev)
         sstate = optimizers(cfg, single)
@@ -670,6 +693,26 @@ def test_checkpoint_written_at_m2_loads_at_m1(checkpoints):
     SGD momentum, Adam moments and counts)."""
     a = checkpoints[0]
     assert a["model_equal"] and a["opt_equal"]
+
+
+def test_pretrained_graft_at_m2_takes_each_ranks_rows(checkpoints):
+    """``-e --pretrained``'s graft (ckpt/pretrained.py::_graft) of the
+    M = 1 checkpoint at (1, 2): each rank's sharded weights hold its rows
+    of the saved tensors and every other tensor the saved one, bit for bit,
+    with the saved temperature; the eval step's decisions on both ranks
+    equal the single process's graft and eval, and its logits within 1e-4
+    (the sharded policy layers sum in another order)."""
+    single = checkpoints[0]["pretrained_m1"]
+    assert not single["rows"] and single["full"] and all(single["full"])
+    for r in checkpoints:
+        got = r["pretrained"]
+        assert got["grafted"] == single["grafted"] > 0
+        assert got["rows"] and all(got["rows"])
+        assert got["full"] and all(got["full"])
+        assert got["temperature"] == single["temperature"] != -1.0
+        assert got["decisions"] == single["decisions"]
+        np.testing.assert_allclose(got["logits"], single["logits"],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_checkpoint_written_at_m1_resumes_at_m2(checkpoints):

@@ -14,7 +14,7 @@ shape (the card's checks), in the case's dtype:
     empty; fewer than 4 rounds of resident blocks only where no more
     chunks (the partials' limit, 3 pixels a lane) or slice groups exist;
   * the partials, written and read, stay within 2% of the bytes the bound
-    counts (``chip_smoke.tpool_bwd_work``);
+    counts (``benchmark/reference/work.py::tpool_bwd_work``);
   * a block's shared memory stays under the card's 227 KB, and two blocks
     fit on an SM;
   * the order in which a channel's terms are added does not depend on C.
@@ -36,6 +36,7 @@ import torch
 import chip_smoke
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
 from adamml_tpu_torch.tools import bench_tpool_bwd
+from benchmark.reference.work import tpool_bwd_work
 
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -142,7 +143,7 @@ def test_blocks_fill_the_card(case):
 def test_partials_and_shared_memory(case):
     _, n, f, h, w, c, _, _, dtype = case
     plan = _plan(case)
-    work, _ = chip_smoke.tpool_bwd_work(n, f, h, w, c, dtype.itemsize)
+    work, _ = tpool_bwd_work(n, f, h, w, c, dtype.itemsize)
     assert plan["partials_bytes"] <= work / 50
     if plan["chunks"] > 1:
         assert plan["partials_shape"] == (n, plan["chunks"], 2, c)

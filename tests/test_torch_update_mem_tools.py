@@ -1,9 +1,9 @@
 """PyTorch port: the optimizer-update and memory tools
 (``adamml_tpu_torch/tools/bench_update.py``, ``mem_analysis.py``), the
 counterparts of tools/bench_update.py and tools/mem_analysis.py, on the
-CPU. Their measurements need a card (tests/test_torch_gpu.py and
-chip_smoke.py's update_mem phase); here bench_update's three rows take
-three untimed updates at the tiny flagship's parameters.
+CPU. Their measurements need a card (tests/test_torch_gpu.py); here
+bench_update's three rows take three untimed updates at the tiny
+flagship's parameters.
 """
 
 import pytest
