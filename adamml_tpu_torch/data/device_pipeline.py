@@ -12,6 +12,8 @@ consuming thread in one ``non_blocking`` copy (``to_device``), then:
           zeroed where the wav was missing (reference
           utils/video_dataset.py:102-103 zero-image fallback)
 
+Each visual modality is one ``crop_resize_normalize`` call, which on a card
+is one kernel launch from the canvases to the packed layout.
 ImageNet mean/std for rgb/rgbdiff, [0.5]/[mean std] for flow (repeated over
 the packed channels), and no normalization for sound.
 """
@@ -25,7 +27,7 @@ import torch
 
 from ..configs.config import modality_mean, modality_std
 from ..models.model_builder import compute_dtype
-from ..ops.augment import crop_resize_normalize, rgbdiff_from_frames
+from ..ops.augment import crop_resize_normalize
 from ..ops.spectrogram import SpectrogramConfig, log_power_spectrogram
 from ..utils.profiling import counted, span
 
@@ -108,33 +110,26 @@ def make_batch_preprocessor(cfg, *, train: bool, num_segments: int,
             frames = to_device(batch[f"{m}_frames"], device)
             crop = to_device(batch[f"{m}_crop"], device)
             flip = to_device(batch[f"{m}_flip"], device)
+            crops = 1
             if crop.dim() == 3:  # oversample: fold crops into the batch
+                crops = ncrops
                 if crop.shape[1] != ncrops:
                     raise ValueError(f"{m}: {crop.shape[1]} crop rects vs "
                                      f"num_crops={ncrops}")
-                frames = frames.repeat_interleave(ncrops, dim=0)
                 crop = crop.reshape(-1, 4)
                 flip = flip.reshape(-1)
-            n = frames.shape[0]
-            if m == "rgbdiff":
-                # (N, P*6, Hc, Wc, 3) -> diffs (N, P*5, Hc, Wc, 3)
-                p = frames.shape[1] // 6
-                frames = frames.reshape((n, p, 6) + tuple(frames.shape[2:]))
-                frames = rgbdiff_from_frames(frames)
-                frames = frames.reshape((n, p * 5) + tuple(frames.shape[3:]))
             cons = {"rgb": 1, "flow": 5, "rgbdiff": 5}[m]
             base_c = frames.shape[-1]
             mean, std = _mean_std(m, dcfg.skip_normalization, dcfg.mean,
                                   dcfg.std, base_c)
+            # (N, S*F, h, w, cons*c), with rgbdiff's (N, S*F*6, ...) canvas
+            # frames differenced on the way
             out = crop_resize_normalize(
                 frames, crop, flip, out_size=out_size, mean=mean, std=std,
-                flow_channels=(m == "flow"), compute_dtype=dtype)
-            # (N, S*F*cons, h, w, c) -> (N, S, F, h, w, cons*c)
-            out = out.reshape(n, num_segments, groups, cons, out_size,
-                              out_size, base_c)
-            out = out.permute(0, 1, 2, 4, 5, 3, 6)
-            out = out.reshape(n, num_segments, groups, out_size, out_size,
-                              cons * base_c)
+                flow_channels=(m == "flow"), compute_dtype=dtype, cons=cons,
+                rgbdiff=(m == "rgbdiff"), ncrops=crops)
+            out = out.reshape(out.shape[0], num_segments, groups, out_size,
+                              out_size, cons * base_c)
             inputs.append(out)
         return inputs, to_device(batch["target"], device)
 

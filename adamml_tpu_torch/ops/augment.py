@@ -2,9 +2,11 @@
 
 The host decodes frames into a fixed-size uint8 canvas and samples a crop
 rectangle and flip per sample; on the device one op crops, resizes, flips
-and normalizes (``crop_resize_normalize``), and ``rgbdiff_from_frames``
-forms the RGB-difference proxy frames. ``policy_stream`` builds the policy
-net's input from the main-net visual stream.
+and normalizes (``crop_resize_normalize``: on a card one hand-written
+kernel, on the CPU ``plain_crop_resize``), forming the RGB-difference proxy
+frames (``rgbdiff_from_frames``) and packing stacked frames into the
+channels on the way. ``policy_stream`` builds the policy net's input from
+the main-net visual stream.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from .kernels import crop_resize as crop_resize_kernel
 
 
 def policy_stream(x: torch.Tensor, size: int = 160,
@@ -72,16 +76,49 @@ def crop_resize_normalize(frames: torch.Tensor, crop_xywh: torch.Tensor,
                           mean: Optional[Sequence[float]],
                           std: Optional[Sequence[float]],
                           flow_channels: bool = False,
-                          compute_dtype: torch.dtype = torch.float32
-                          ) -> torch.Tensor:
+                          compute_dtype: torch.dtype = torch.float32,
+                          cons: int = 1, rgbdiff: bool = False,
+                          ncrops: int = 1) -> torch.Tensor:
     """Batched crop + resize + flip + normalize, on the frames' device.
 
-    frames:    (N, T, H, W, C) uint8 canvas (frames at top-left, zero pad)
-    crop_xywh: (N, 4) float32 crop rectangles in source pixel coords
+    frames:    (Nc, T, H, W, C) uint8 canvas (frames at top-left, zero pad)
+    crop_xywh: (N, 4) float32 crop rectangles in source pixel coords,
+               N = Nc * ncrops: sample n crops canvas n // ncrops
     flip:      (N,) bool
     mean/std:  per-channel tuples, or None to skip normalization
     flow_channels: True when C == 2 (x, y flow pair): x inverts on flip
-    returns    (N, T, out_size, out_size, C) compute_dtype
+    cons:      frames packed into an output frame's channels, frame-major
+    rgbdiff:   the frames are the differences of each group of cons + 1
+               consecutive canvas frames (``rgbdiff_from_frames``)
+    returns    (N, T_out, out_size, out_size, cons * C) compute_dtype, with
+               T_out = T / cons (T / (cons + 1) with rgbdiff)
+
+    A CUDA tensor goes to the hand-written kernel
+    (``ops/kernels/crop_resize.py``), which reads the canvases once and
+    writes this layout; a CPU tensor takes ``plain_crop_resize``.
+    """
+    if frames.is_cuda:
+        return crop_resize_kernel.crop_resize(
+            frames, crop_xywh.float().contiguous(), flip.contiguous(),
+            out_size=out_size, mean=mean, std=std, flow=flow_channels,
+            rgbdiff=rgbdiff, cons=cons, ncrops=ncrops,
+            out_dtype=compute_dtype)
+    return plain_crop_resize(
+        frames, crop_xywh, flip, out_size=out_size, mean=mean, std=std,
+        flow_channels=flow_channels, compute_dtype=compute_dtype, cons=cons,
+        rgbdiff=rgbdiff, ncrops=ncrops)
+
+
+def plain_crop_resize(frames: torch.Tensor, crop_xywh: torch.Tensor,
+                      flip: torch.Tensor, *, out_size: int,
+                      mean: Optional[Sequence[float]],
+                      std: Optional[Sequence[float]],
+                      flow_channels: bool = False,
+                      compute_dtype: torch.dtype = torch.float32,
+                      cons: int = 1, rgbdiff: bool = False,
+                      ncrops: int = 1) -> torch.Tensor:
+    """``crop_resize_normalize`` in plain PyTorch, on any device: the
+    canvases repeated per crop, rgbdiff's frames, then the resize.
 
     The resize is ``jax.image.scale_and_translate`` (linear, antialiased)
     with scale out/crop and translation -origin*scale per axis, computed
@@ -89,6 +126,14 @@ def crop_resize_normalize(frames: torch.Tensor, crop_xywh: torch.Tensor,
     ``resample_weights`` in float32 (TF32 must be off on the card for the
     result to match the CPU's).
     """
+    if ncrops > 1:
+        frames = frames.repeat_interleave(ncrops, dim=0)
+    if rgbdiff:
+        n, t = frames.shape[:2]
+        g = cons + 1
+        diffs = rgbdiff_from_frames(
+            frames.reshape((n, t // g, g) + tuple(frames.shape[2:])))
+        frames = diffs.reshape((n, t // g * cons) + tuple(frames.shape[2:]))
     n, t, h, w, c = frames.shape
     crop = crop_xywh.float()
     x0, y0, cw, ch = crop[:, 0], crop[:, 1], crop[:, 2], crop[:, 3]
@@ -112,7 +157,13 @@ def crop_resize_normalize(frames: torch.Tensor, crop_xywh: torch.Tensor,
         std_t = torch.tensor(std, dtype=torch.float32, device=out.device)
         out = out / 255.0
         out = (out - mean_t) / std_t
-    return out.to(compute_dtype)
+    out = out.to(compute_dtype)
+    if cons > 1:
+        # (N, T_out * cons, h, w, c) -> (N, T_out, h, w, cons * c)
+        out = out.reshape(n, t // cons, cons, out_size, out_size, c)
+        out = out.permute(0, 1, 3, 4, 2, 5).reshape(
+            n, t // cons, out_size, out_size, cons * c)
+    return out
 
 
 def rgbdiff_from_frames(frames: torch.Tensor) -> torch.Tensor:

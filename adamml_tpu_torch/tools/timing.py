@@ -82,8 +82,13 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
                        torch.ldexp(torch.ones_like(w), e - 8))
 
 
-def within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
-    return bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
+def within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
+                        atol: float = 0.0) -> bool:
+    """Every value of ``got`` within one bf16 ulp of ``want``'s, plus
+    ``atol``: near 0 a float32 round-off of the sums spans many bf16
+    ulps."""
+    return bool(((got.float() - want.float()).abs()
+                 <= bf16_ulp(want) + atol).all())
 
 
 def device_trace(fn) -> tuple:

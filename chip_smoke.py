@@ -30,8 +30,14 @@ Phases, each printing one JSON line a case:
               (library_ms), per layer and summed by stride; then the
               step's 51 layers back to back in one CUDA-event window;
   tools       the stage-boundary prototype kernel at bench_tpool's shapes;
-  kernels     one object per ported kernel, as in PERF.md's table, with
-              its launches in each of the two full-width steps.
+  crop_resize the card preprocessing's kernel (ops/kernels/crop_resize.py)
+              at each train cell's visual modalities of one step (flagship
+              rgb, rgbflow rgb, flow and rgbdiff, slowfast rgb;
+              tools/crop_cases.py), with the loader's train crops, beside
+              the plain path; sums by cell; then its launches on
+              make_batch_preprocessor of a rgbflow and a flagship batch;
+  kernels     one object per kernel, as in PERF.md's table, with its
+              launches on each path the script runs.
 
 Every timed kernel: CUDA events, mean of 20 after 3 warm-up (a plain
 version 5 after 1 where it is slow), L2 zeroed between launches, bf16,
@@ -40,11 +46,13 @@ against its plain version on the same inputs, which must lie within the
 card tests' tolerance (the forward epilogue, dy, dident and depthwise bit
 for bit; da and db within 1e-4 of their largest entry; the prototype
 within one bf16 ulp; BN within test_cuda_bn_kernels_match_plain's
-bounds), or the script stops with an error. The kernels' launches are
-counted on the two full-width steps the script runs to find its shapes
-(an 18-clip main-phase step, an 8-clip eval step with use_pallas_dw),
-counts zeroed just before each, and must be what those paths launch. The
-epilogue's bounds are benchmark/reference/work.py's; bn_work and dw_work
+bounds; crop-resize within one bf16 ulp plus 1e-5), or the script stops
+with an error. The kernels' launches are counted on the two full-width
+steps the script runs to find its shapes (an 18-clip main-phase step, an
+8-clip eval step with use_pallas_dw) and on the preprocessing of a rgbflow
+and a flagship train batch at full width, counts zeroed just before each,
+and must be what those paths launch. The epilogue's bounds are
+benchmark/reference/work.py's; bn_work, dw_work and crop_resize.work
 count the others. The sums over the three stage boundaries are the
 table's "Kernel ms", "Bound ms" and "Plain ms". The port's other checks
 on the card are tests/test_torch_gpu.py's:
@@ -64,19 +72,26 @@ import sys
 import time
 from collections import Counter
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from adamml_tpu_torch.configs import flagship_cfg
+from adamml_tpu_torch.configs.config import arg_parser, config_from_args
+from adamml_tpu_torch.data.device_pipeline import make_batch_preprocessor
 from adamml_tpu_torch.models.mobilenet_v2 import _DepthwiseConv
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
 from adamml_tpu_torch.models.norm import EPSILON, MOMENTUM, GroupedBatchNorm
+from adamml_tpu_torch.ops.augment import plain_crop_resize
 from adamml_tpu_torch.ops.kernels import bn_train as tbn
 from adamml_tpu_torch.ops.kernels import build
+from adamml_tpu_torch.ops.kernels import crop_resize as crk
 from adamml_tpu_torch.ops.kernels import depthwise as dwk
 from adamml_tpu_torch.ops.kernels import tpool_fused as tp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
+from adamml_tpu_torch.ops.spectrogram import SpectrogramConfig
 from adamml_tpu_torch.tools import bench_tpool
+from adamml_tpu_torch.tools import crop_cases as cc
 from adamml_tpu_torch.tools.timing import (HBM_BYTES_PER_S, bf16_ulp,
                                            bound_ms, event_ms,
                                            l2_flush_buffer, nvidia_smi,
@@ -91,7 +106,7 @@ from benchmark.reference.work import tpool_bwd_work, tpool_work
 # the train step's settings (bench.py:156-161)
 LR, P_LR, COST, GAMMAS = 1e-3, 1e-2, [1.0, 0.05], 10.0
 COUNTS = (tp.launch_counts, dwk.launch_counts, tpp.launch_counts,
-          tbn.launch_counts)
+          tbn.launch_counts, crk.launch_counts)
 BWD_NAME = "tpool_fused_bwd_kernel"
 TIMING = ("CUDA events, mean of 20 after 3 warm-up, L2 zeroed between "
           "launches")
@@ -669,6 +684,116 @@ def kernel_dw_phase(dev) -> dict:
     return res
 
 
+# the bf16 output against the plain path's: one bf16 ulp, plus a tenth of
+# the float32 limit (1e-4 normalised) where round-off near 0 spans more
+CROP_BF16_ATOL = 1e-5
+# rgbflow's preprocessing (benchmark/configs/rgbflow.json's flags for it)
+RGBFLOW_ARGV = ("--dataset kinetics-sounds --modality rgb flow rgbdiff "
+                "--groups 8 --frames_per_group 4 --num_segments 5 "
+                "--dense_sampling -b 9").split()
+
+
+def preprocess_launches(dev) -> dict:
+    """The kernel's launches on its main path: ``make_batch_preprocessor``
+    of rgbflow (rgb, flow, rgbdiff) and of flagship (rgb, sound) at full
+    width, each on one train batch of STEP_CASES' canvases from the host,
+    counts zeroed just before the call; one launch a visual modality and
+    none for sound, and the model's input shapes, or an error."""
+    out = {}
+    for cell, cfg in (
+            ("rgbflow", config_from_args(arg_parser().parse_args(
+                RGBFLOW_ARGV))),
+            ("flagship", flagship_cfg())):
+        cases = [c for c in cc.STEP_CASES if c[0].startswith(cell)]
+        n, s = cases[0][2], cfg.model.num_segments
+        batch = {"target": np.zeros(n, np.int64)}
+        for i, case in enumerate(cases):
+            a = cc.step_inputs(case, dev, seed=60 + i)
+            m = case[1]
+            batch[f"{m}_frames"] = a["frames"].cpu().numpy()
+            batch[f"{m}_crop"] = a["crop_xywh"].cpu().numpy()
+            batch[f"{m}_flip"] = a["flip"].cpu().numpy()
+            del a
+        if "sound" in cfg.model.modality:
+            length = SpectrogramConfig(
+                resampling_rate=int(cfg.data.resampling_rate),
+                audio_length=cfg.data.audio_length).num_samples
+            batch["sound_wave"] = np.zeros((n, s, length), np.float32)
+            batch["sound_valid"] = np.ones((n, s), np.float32)
+        preprocess = make_batch_preprocessor(cfg, train=True, num_segments=s,
+                                             device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        inputs, _ = preprocess(batch)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in all_counts().items() if v}
+        check(got == {crk.KERNEL: len(cases)},
+              f"{cell} preprocessing: {got} launches for {len(cases)} "
+              f"visual modalities")
+        shapes = [list(x.shape) for x in inputs]
+        check(all(x[:2] == [n, s] for x in shapes),
+              f"{cell} preprocessing: input shapes {shapes}")
+        out[cell] = got
+        emit("crop_resize", case=f"{cell}_preprocess", launches=got,
+             inputs=shapes)
+        del batch, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def crop_resize_phase(dev) -> dict:
+    """The crop-resize kernel at each crop_cases.STEP_CASES row, bf16:
+    timed with CUDA events (L2 zeroed between launches) beside the plain
+    path (augment.plain_crop_resize, float32 with TF32 off, one rounding to
+    bf16) and the bound (crop_resize.work: the canvas bytes under the taps'
+    support read once and the output written once, over 3.35 TB/s), with
+    its largest error against the plain path, which must lie within one
+    bf16 ulp (plus CROP_BF16_ATOL); sums by cell; then its launches on the
+    preprocessing (``preprocess_launches``)."""
+    flush = l2_flush_buffer(dev)
+    rows = []
+    for i, case in enumerate(cc.STEP_CASES):
+        a = cc.step_inputs(case, dev, seed=40 + i)
+        flow = a.pop("flow")
+        zero_counts()
+        got = crk.crop_resize(**a, flow=flow, out_dtype=torch.bfloat16)
+        check(crk.launch_counts[crk.KERNEL] == 1,
+              f"crop_resize {case[0]}: {crk.launch_counts} launches")
+        want = plain_crop_resize(**a, flow_channels=flow,
+                                 compute_dtype=torch.bfloat16)
+        err = max_abs_err(got, want)
+        check(within_one_bf16_ulp(got, want, CROP_BF16_ATOL),
+              f"crop_resize {case[0]}: beyond one bf16 ulp of the plain "
+              f"path ({err})")
+        del got, want
+        nbytes = crk.work(tuple(a["frames"].shape), a["crop_xywh"],
+                          a["out_size"], a["cons"], a["rgbdiff"], 2)
+        bound, by = bound_ms(nbytes, 0)
+        k_ms = event_ms(lambda: crk.crop_resize(
+            **a, flow=flow, out_dtype=torch.bfloat16), flush=flush)
+        p_ms = event_ms(lambda: plain_crop_resize(
+            **a, flow_channels=flow, compute_dtype=torch.bfloat16),
+            iters=5, warmup=1, flush=flush)
+        row = dict(case=case[0], canvases=list(a["frames"].shape),
+                   cons=a["cons"], rgbdiff=a["rgbdiff"], dtype="bfloat16",
+                   max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                   bound_by=by, bytes=nbytes, share_of_bound=bound / k_ms)
+        emit("crop_resize", **row, timing=PLAIN_TIMING)
+        rows.append(row)
+        del a
+        torch.cuda.empty_cache()
+    cells = {}
+    for cell in ("flagship", "rgbflow", "slowfast"):
+        mine = [r for r in rows if r["case"].startswith(cell)]
+        cells[cell] = dict(_sum(mine), max_abs_err=max(
+            r["max_abs_err"] for r in mine))
+    res = dict(cells=cells, cases=rows,
+               ptxas=build.ptxas_entries(crk.SOURCE),
+               preprocess=preprocess_launches(dev))
+    emit("crop_resize_sum", cells=cells, timing=PLAIN_TIMING)
+    return res
+
+
 def tools_phase(dev) -> dict:
     """The prototype kernel (tools/bench_tpool.py's) against its plain
     version at bench_tpool's three stage shapes (batch 8)."""
@@ -715,7 +840,8 @@ def main() -> int:
     emit("device", kind=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [tp.KERNEL, tp.KERNEL_BWD, dwk.KERNEL, tpp.KERNEL, tbn.SOURCE]
+    kernels = [tp.KERNEL, tp.KERNEL_BWD, dwk.KERNEL, tpp.KERNEL, tbn.SOURCE,
+               crk.SOURCE]
     t0 = time.perf_counter()
     build.build(kernels)
     ptxas = {k: [ln.strip() for ln in build.build_log(k).splitlines()
@@ -727,10 +853,14 @@ def main() -> int:
     bnres = bn_kernel_phase(dev)
     dres = kernel_dw_phase(dev)
     ores = tools_phase(dev)
+    cres = crop_resize_phase(dev)
     # each kernel's launches a step, by path: an 8-clip eval step with
-    # use_pallas_dw, an 18-clip main-phase step
+    # use_pallas_dw, an 18-clip main-phase step, and the preprocessing of a
+    # rgbflow and of a flagship train batch
     paths = {"eval_step": dres["step_launches"],
-             "main_step": bnres["step_launches"]}
+             "main_step": bnres["step_launches"],
+             "rgbflow_preprocess": cres["preprocess"]["rgbflow"],
+             "flagship_preprocess": cres["preprocess"]["flagship"]}
 
     def launches(name):
         return {path: got.get(name, 0) for path, got in paths.items()}
@@ -794,7 +924,20 @@ def main() -> int:
                 "calls of one 18-clip flagship main-phase step (the "
                 "finalize kernels count no bound bytes); max_abs_err is "
                 "each kernel's largest over those calls' shapes (sums' "
-                "errors scale with the sums)"}]}), flush=True)
+                "errors scale with the sums)"}, {
+        "name": crk.KERNEL, "route": "cuda",
+        "source": "adamml_tpu_torch/csrc/crop_resize.cu",
+        "replaces": None, "launches": launches(crk.KERNEL),
+        "library_ms": None, "bound_by": "bytes",
+        **_table(cres["cells"]["rgbflow"]), "cells": cres["cells"],
+        "ptxas": cres["ptxas"],
+        "note": "no Pallas kernel: the JAX package leaves the resize to "
+                "XLA; ms, plain_ms and bound_ms are rgbflow's three "
+                "modalities of one 9-clip step (cells: each train cell's "
+                "visual modalities of one step), bf16; launches: the "
+                "preprocessing of one rgbflow and one flagship train batch "
+                "(make_batch_preprocessor), once a visual modality; the "
+                "full-width steps run no preprocessing"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

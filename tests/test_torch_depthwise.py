@@ -280,11 +280,11 @@ def test_tpool_proto_check_args_rejects(bad):
 
 
 def test_build_knows_every_source(monkeypatch, tmp_path):
-    """The five kernel sources are in csrc/ (``build.sources``, which the
+    """The six kernel sources are in csrc/ (``build.sources``, which the
     first load of any library builds), and a build without nvcc raises
     before writing anything."""
     names = ["tpool_fused", "tpool_fused_bwd", tdw.KERNEL, tpp.KERNEL,
-             "bn_train"]
+             "bn_train", "crop_resize"]
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == sorted(
         names)
     assert build.sources() == sorted(names)

@@ -49,17 +49,20 @@ from adamml_tpu_torch.cli import train_adamml
 from adamml_tpu_torch.configs import flagship_cfg
 from adamml_tpu_torch.configs.config import arg_parser, config_from_args
 from adamml_tpu_torch.data.dataflow import HostDataLoader
-from adamml_tpu_torch.data.device_pipeline import (make_batch_preprocessor,
-                                                    to_device)
+from adamml_tpu_torch.data.device_pipeline import (
+    make_batch_preprocessor, make_unimodal_preprocessor, to_device)
 from adamml_tpu_torch.data.synthetic import SyntheticVideoDataset
 from adamml_tpu_torch.models import policy_net as tpolicy
 from adamml_tpu_torch.models.model_builder import build_model, example_inputs
-from adamml_tpu_torch.ops.augment import policy_stream
+from adamml_tpu_torch.ops.augment import (plain_crop_resize, policy_stream,
+                                          rgbdiff_from_frames)
 from adamml_tpu_torch.ops.kernels import bn_train as tbn
+from adamml_tpu_torch.ops.kernels import crop_resize as tcr
 from adamml_tpu_torch.ops.kernels import depthwise as tdw
 from adamml_tpu_torch.ops.kernels import tpool_fused as ttp
 from adamml_tpu_torch.ops.kernels import tpool_proto as tpp
-from adamml_tpu_torch.tools.timing import bf16_ulp
+from adamml_tpu_torch.tools import crop_cases as cc
+from adamml_tpu_torch.tools.timing import bf16_ulp, within_one_bf16_ulp
 from adamml_tpu_torch.train import curriculum as cur
 from adamml_tpu_torch.train.optim import build_optimizer
 from adamml_tpu_torch.train.steps import (make_adamml_eval_step,
@@ -1207,6 +1210,202 @@ def test_preprocess_on_card_matches_cpu(monkeypatch):
         for m, a, b in zip(cfg.model.modality, got["cuda"], got["cpu"]):
             assert a.shape == b.shape, m
             assert float((a - b).abs().max()) <= 1e-3, m
+
+
+# the crop-resize kernel against the plain path: float32 within 1e-4
+# normalised and 5e-3 in raw pixel units (test_crop_resize_normalize_matches'
+# reasons, tests/test_torch_data.py); bf16 within one bf16 ulp, plus a tenth
+# of the float32 limit where float32 round-off near 0 spans more than one
+# bf16 ulp (tests/test_torch_crop_resize.py)
+CROP_F32_ATOL = {True: 1e-4, False: 5e-3}
+CROP_BF16_ATOL = {True: 1e-5, False: 5e-4}
+
+
+def _crop_close(got, want, normalize: bool) -> None:
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        assert within_one_bf16_ulp(got, want, CROP_BF16_ATOL[normalize]), (
+            float((got.float() - want.float()).abs().max()))
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=CROP_F32_ATOL[normalize])
+
+
+def _crop_both(a: dict, dtype) -> tuple:
+    """(the kernel's output, the plain path's) of ``a``
+    (``tools/crop_cases.py``'s keyword arguments), one launch counted."""
+    a = dict(a)
+    flow = a.pop("flow")
+    before = tcr.launch_counts[tcr.KERNEL]
+    got = tcr.crop_resize(**a, flow=flow, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert tcr.launch_counts[tcr.KERNEL] == before + 1
+    return got, plain_crop_resize(**a, flow_channels=flow,
+                                  compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", cc.STEP_CASES,
+                         ids=[c[0] for c in cc.STEP_CASES])
+def test_cuda_crop_resize_matches_plain(case, dtype, normalize, monkeypatch):
+    """The kernel at each train cell's visual modalities of one step (the
+    benchmark's train crops on full-size canvases) against the plain path,
+    float32 with TF32 off."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    a = cc.step_inputs(case, "cuda", seed=7)
+    if not normalize:
+        a["mean"] = a["std"] = None
+    _crop_close(*_crop_both(a, dtype), normalize)
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ncrops", [1, 3])
+@pytest.mark.parametrize("out_size", [8, 48])
+@pytest.mark.parametrize("modality", sorted(cc.MODALITIES))
+def test_cuda_crop_resize_odd_crops(modality, out_size, ncrops, dtype,
+                                    normalize, monkeypatch):
+    """The CPU tests' odd crops: minified to 8 px (up to 16 taps an axis),
+    magnified to 48, the 3.5-pixel crop, crops across the canvas edge and
+    one outside it, flips, three oversample crops a canvas."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    a = cc.odd_inputs(modality, ncrops, out_size, normalize, "cuda")
+    _crop_close(*_crop_both(a, dtype), normalize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_crop_resize_fused_rgbdiff(dtype, monkeypatch):
+    """rgbdiff formed per tap equals the rgb kernel over
+    rgbdiff_from_frames' uint8 differences, packed five frames an output
+    frame, bit for bit; and the plain path's rgbdiff_from_frames followed
+    by the resize within the limits."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    a = cc.step_inputs(cc.STEP_CASES[3], "cuda", seed=9)
+    flow = a.pop("flow")
+    fused = tcr.crop_resize(**a, flow=flow, out_dtype=dtype)
+    frames = a.pop("frames")
+    n, t = frames.shape[:2]
+    diffs = rgbdiff_from_frames(
+        frames.reshape((n, t // 6, 6) + tuple(frames.shape[2:])))
+    diffs = diffs.reshape((n, t // 6 * 5) + tuple(frames.shape[2:]))
+    a["rgbdiff"] = False
+    rgb = tcr.crop_resize(diffs, **dict(a, cons=1), flow=flow,
+                          out_dtype=dtype)
+    packed = rgb.reshape((n, t // 6, 5) + tuple(rgb.shape[2:]))
+    packed = packed.permute(0, 1, 3, 4, 2, 5).reshape(fused.shape)
+    torch.testing.assert_close(fused, packed, rtol=0, atol=0)
+    _crop_close(fused, plain_crop_resize(diffs, **a, flow_channels=flow,
+                                         compute_dtype=dtype), True)
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+@pytest.mark.parametrize("case", sorted(cc.AXIS_CASES))
+def test_cuda_crop_resize_weights_are_the_tap_rule(case, axis):
+    """The kernel's weights along one axis, read through impulse canvases
+    (canvas frame j lights canvas column, or row, j; the other axis is one
+    pixel, whose one tap weighs 1 exactly, so each output is its weight of
+    index j times 255 rounded once), equal crop_resize.band_weights' times
+    255 bit for bit, on every output row, column and channel: the tap rule
+    written in PyTorch, which the CPU tests hold to resample_weights, is
+    the kernel's, beyond its four cached weights too (116 taps at
+    464 -> 8)."""
+    _need_card()
+    in_size, out_size, origin, extent = cc.AXIS_CASES[case]
+    eye = torch.eye(in_size, dtype=torch.uint8, device="cuda") * 255
+    if axis == "x":
+        frames = eye[:, None, :, None].expand(in_size, 1, in_size, 3)
+        crop = [origin, 0.0, extent, 1.0]
+    else:
+        frames = eye[:, :, None, None].expand(in_size, in_size, 1, 3)
+        crop = [0.0, origin, 1.0, extent]
+    out = tcr.crop_resize(frames.contiguous()[None],
+                          torch.tensor([crop], device="cuda"),
+                          torch.tensor([False], device="cuda"),
+                          out_size=out_size, mean=None, std=None)[0]
+    want = tcr.band_weights(in_size, out_size, torch.tensor([origin]),
+                            torch.tensor([extent]))[0].T * 255.0
+    want = want.cuda()  # (canvas index j, output o)
+    if axis == "x":
+        want = want[:, None, :, None].expand(out.shape)
+    else:
+        want = want[:, :, None, None].expand(out.shape)
+    assert torch.equal(out, want), float((out - want).abs().max())
+
+
+@pytest.mark.parametrize("case", cc.STEP_CASES[2:4],
+                         ids=[c[0] for c in cc.STEP_CASES[2:4]])
+def test_cuda_crop_resize_is_deterministic(case):
+    _need_card()
+    a = cc.step_inputs(case, "cuda", seed=11)
+    flow = a.pop("flow")
+    first = tcr.crop_resize(**a, flow=flow, out_dtype=torch.bfloat16)
+    again = tcr.crop_resize(**a, flow=flow, out_dtype=torch.bfloat16)
+    assert torch.equal(first, again)
+
+
+def test_crop_resize_launches_once_a_visual_modality():
+    """make_batch_preprocessor launches the kernel once a visual modality
+    a batch and never for sound, in training and in the oversample eval
+    (3 crops folded into the batch); the unimodal preprocessor once."""
+    _need_card()
+    argv = ("--dataset synthetic --modality rgb flow rgbdiff sound "
+            "--groups 2 --frames_per_group 2 --num_segments 2 "
+            "--dense_sampling --input_size 32 --audio_length 0.16 "
+            "--compute_dtype bfloat16 --num_crops 3 -b 4").split()
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    cfg.data.canvas_size = (64, 96)
+    for train in (True, False):
+        ds = cur._make_dataset(cfg, is_train=train, num_clips=2)
+        batch = next(iter(cur._make_loader(cfg, ds, is_train=train)))
+        before = tcr.launch_counts[tcr.KERNEL]
+        x, _ = make_batch_preprocessor(cfg, train=train, num_segments=2,
+                                       device="cuda")(batch)
+        torch.cuda.synchronize()
+        assert tcr.launch_counts[tcr.KERNEL] == before + 3
+        rows = 4 * (1 if train else 3)
+        assert [tuple(t_.shape) for t_ in x[:3]] == [
+            (rows, 2, 2, 32, 32, k) for k in (3, 10, 15)]
+        assert all(t_.dtype == torch.bfloat16 and t_.is_contiguous()
+                   for t_ in x[:3])
+    uni = ("--dataset synthetic --modality rgb --groups 4 "
+           "--frames_per_group 1 --num_segments 1 --dense_sampling "
+           "--input_size 32 -b 2").split()
+    ucfg = config_from_args(arg_parser().parse_args(uni))
+    ucfg.data.canvas_size = (64, 96)
+    ds = cur._make_dataset(ucfg, is_train=True, num_clips=1)
+    batch = next(iter(cur._make_loader(ucfg, ds, is_train=True)))
+    before = tcr.launch_counts[tcr.KERNEL]
+    x, _ = make_unimodal_preprocessor(ucfg, train=True,
+                                      device="cuda")(batch)
+    torch.cuda.synchronize()
+    assert tcr.launch_counts[tcr.KERNEL] == before + 1
+    assert tuple(x.shape) == (2, 4, 32, 32, 3)
+
+
+def test_cuda_crop_resize_refuses_what_it_does_not_take():
+    """A crop or flip left on the CPU beside canvases on the card, float
+    canvases and a strided view of them: refused before any launch."""
+    _need_card()
+    a = cc.odd_inputs("rgb", 1, 8, True, "cuda")
+    flow = a.pop("flow")
+    before = tcr.launch_counts[tcr.KERNEL]
+    bad = [dict(crop_xywh=a["crop_xywh"].cpu()), dict(flip=a["flip"].cpu()),
+           dict(frames=a["frames"].float()),
+           dict(frames=torch.zeros((9, 2, 40, 128, 3), dtype=torch.uint8,
+                                   device="cuda")[:, :, :, ::2])]
+    for kw in bad:
+        args = dict(a, **kw)
+        with pytest.raises(ValueError):
+            tcr.crop_resize(args.pop("frames"), args.pop("crop_xywh"),
+                            args.pop("flip"), **args, flow=flow)
+    assert tcr.launch_counts[tcr.KERNEL] == before
 
 
 # train_adamml at the tiny settings (4 frames: 2 stage boundaries pool)
