@@ -78,6 +78,10 @@ def main(argv=None, device=None) -> int:
     args = parser.parse_args(argv)
     validate_args(parser, args)
     cfg = config_from_args(args)
+    if cfg.optim.optimizer != "sgd":
+        raise ValueError(f"--optimizer {cfg.optim.optimizer} is "
+                         f"train_unimodal's: train_adamml trains the main "
+                         f"net with SGD and the policy with Adam")
     cfg.model.backbone_net = "adamml"
     if cfg.runtime.pred_files:
         return run_ensemble_scoring(cfg)

@@ -3,7 +3,8 @@
 
 Trains a single backbone (resnet for rgb/flow/rgbdiff, sound_mobilenet_v2
 for sound, unless --backbone_net names one; slowfast, the 3D SlowFast 8x8
-R50 of models/slowfast.py, for rgb clips). Mean/std overrides are
+R50 of models/slowfast.py, or mvit, MViTv2-S 16x4 of models/mvit.py, for
+rgb clips), with SGD or, under --optimizer adamw, AdamW. Mean/std overrides are
 validated like the reference (train_unimodal.py:100-117). Runs on CUDA
 unless ``main`` is given ``device="cpu"``; multi-process runs as
 train_adamml's.
@@ -14,6 +15,11 @@ train_adamml's.
       --datadir DIR --modality rgb --backbone_net slowfast -d 50 \
       --groups 32 --frames_per_group 2 --num_segments 1 --dense_sampling \
       -b 64 --lr 0.8 ...
+  python -m adamml_tpu_torch.cli.train_unimodal --dataset kinetics400 \
+      --datadir DIR --modality rgb --backbone_net mvit --groups 16 \
+      --frames_per_group 4 --num_segments 1 --dense_sampling \
+      --optimizer adamw --wd 0.05 --clip_gradient 1.0 \
+      --augmentor_ver random_sized -b 32 --lr 4e-4 ...
 """
 
 from __future__ import annotations

@@ -119,6 +119,9 @@ class OptimConfig:
     start_epoch: int = 0
     fused_update: bool = True
     steps_per_dispatch: int = 1
+    # the main net's optimizer (the port's own flag): sgd, or adamw with
+    # decoupled decay and none on 1-D parameters
+    optimizer: str = "sgd"
 
 
 @dataclasses.dataclass
@@ -231,6 +234,8 @@ def _network_name(cfg: ExperimentConfig) -> str:
         return "sound_mobilenet_v2"
     if m.backbone_net == "slowfast":
         return f"slowfast-r{m.depth}"
+    if m.backbone_net == "mvit":
+        return "mvitv2-s"
     # adamml (reference models/adamml.py:101-109 + policy_net.py:375-379 +
     # joint_resnet_mobilenetv2.py:74-82)
     name = "adamml"
@@ -273,7 +278,7 @@ def arg_parser() -> argparse.ArgumentParser:
     # model
     p.add_argument("--backbone_net", default="adamml", type=str,
                    choices=["adamml", "resnet", "sound_mobilenet_v2",
-                            "slowfast"])
+                            "slowfast", "mvit"])
     p.add_argument("-d", "--depth", default=50, type=int,
                    choices=[18, 34, 50, 101, 152])
     p.add_argument("--dropout", default=0.5, type=float)
@@ -348,6 +353,10 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_dispatch", default=1, type=int,
                    help="K real optimizer steps per dispatch (on a CUDA "
                         "card one replayed CUDA graph)")
+    p.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw"],
+                   help="train_unimodal's optimizer: SGD (--momentum, "
+                        "L2 --wd in the gradient) or AdamW (decoupled --wd, "
+                        "none on 1-D parameters)")
 
     # data
     p.add_argument("-j", "--workers", default=18, type=int)
@@ -439,7 +448,7 @@ def validate_args(parser: argparse.ArgumentParser,
     cannot run: --mesh_model that does not divide the world size,
     --mesh_data other than -1 or the world size over it, and two devices
     outside --multiprocessing-distributed; and for --backbone_net slowfast
-    what it cannot take (``_check_slowfast``)."""
+    and mvit what each cannot take (``_check_slowfast``, ``_check_mvit``)."""
     if args.threed_data:
         parser.error("--threed_data loads clips in the (C, T, H, W) layout "
                      "of a 3D backbone that the model table lacks (the "
@@ -465,6 +474,8 @@ def validate_args(parser: argparse.ArgumentParser,
                      "reference utils/video_dataset.py:154-168)")
     if args.backbone_net == "slowfast":
         _check_slowfast(args)
+    if args.backbone_net == "mvit":
+        _check_mvit(args)
     if args.mesh_model < 1:
         raise ValueError(f"--mesh_model {args.mesh_model} must be at least 1")
     # the world size is known here unless a hostfile or the spawn sets it
@@ -515,6 +526,30 @@ def _check_slowfast(args: argparse.Namespace) -> None:
     if args.depth != 50:
         raise ValueError(f"--backbone_net slowfast is built at -d/--depth "
                          f"50 only, not {args.depth}")
+
+
+def _check_mvit(args: argparse.Namespace) -> None:
+    """What MViTv2-S 16x4 (models/mvit.py) cannot take: other modalities
+    than rgb, more than one segment, a clip of other than 16 frames, crops
+    of other than 224 px (its relative-position tables are sized for the
+    token grid of 16 x 224 x 224), a depth flag other than the default
+    (the model has one depth, 16 blocks)."""
+    if list(args.modality) != ["rgb"]:
+        raise ValueError(f"--backbone_net mvit takes --modality rgb, not "
+                         f"{' '.join(args.modality)}")
+    if args.num_segments != 1:
+        raise ValueError(f"--backbone_net mvit takes --num_segments 1 (one "
+                         f"clip of --groups frames), not {args.num_segments}")
+    if args.groups != 16:
+        raise ValueError(f"--backbone_net mvit takes --groups 16 (the "
+                         f"clip's frames), not {args.groups}")
+    if args.input_size != 224:
+        raise ValueError(f"--backbone_net mvit takes --input_size 224, not "
+                         f"{args.input_size}")
+    if args.depth != 50:
+        raise ValueError(f"--backbone_net mvit has one depth (16 blocks): "
+                         f"leave -d/--depth at its default, not "
+                         f"{args.depth}")
 
 
 def cuda_device(args: argparse.Namespace, local_rank: int = 0) -> str:
@@ -577,6 +612,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         start_epoch=args.start_epoch,
         fused_update=not args.no_fused_update,
         steps_per_dispatch=args.steps_per_dispatch,
+        optimizer=args.optimizer,
     )
     data = DataConfig(
         datadir=list(args.datadir), dataset=args.dataset,

@@ -20,6 +20,7 @@ from ..utils.device import resolve_device
 from .adamml import AdaMML
 from .layers import Conv, Dense
 from .mobilenet_v2 import MobileNetV2
+from .mvit import MViT
 from .norm import GroupedBatchNorm
 from .resnet_tsn import ResNetTSN
 from .slowfast import SlowFast
@@ -108,6 +109,10 @@ def build_model(cfg: ExperimentConfig, device: Device = None,
         model = SlowFast(depth=m.depth, num_classes=m.num_classes,
                          dropout=m.dropout, frames=m.groups, dtype=dtype,
                          bn_groups=groups)
+    elif m.backbone_net == "mvit":
+        model = MViT(num_classes=m.num_classes, dropout=m.dropout,
+                     frames=m.groups, input_size=cfg.data.input_size,
+                     dtype=dtype)
     elif m.backbone_net == "sound_mobilenet_v2":
         model = MobileNetV2(num_classes=m.num_classes, dropout=m.dropout,
                             use_pallas_dw=m.use_pallas_dw, dtype=dtype,
@@ -168,8 +173,8 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in place: conv and dense kernels
     N(0, 1/fan_in) (flax's lecun_normal scale), biases 0, BN scale 1 and
     bias 0 with running mean 0 / var 1, late-fusion weights 1/M. A model
-    with rules of its own (SlowFast: PySlowFast's) has an ``init_weights``
-    that takes the generator instead."""
+    with rules of its own (SlowFast and MViT: PySlowFast's) has an
+    ``init_weights`` that takes the generator instead."""
     gen = torch.Generator().manual_seed(seed)
     if hasattr(model, "init_weights"):
         model.init_weights(gen)

@@ -1,4 +1,4 @@
-"""Dropout with an explicit generator (flax ``nn.Dropout``).
+"""Dropout and drop path with an explicit generator (flax ``nn.Dropout``).
 
 Keeps each element with probability 1 - p, drawn as ``rand < 1 - p`` from
 the caller's ``torch.Generator`` on the tensor's device, and scales what it
@@ -28,4 +28,20 @@ def dropout(x: torch.Tensor, p: float, train: bool,
     keep_prob = 1.0 - p
     keep = local_noise(lambda shape: torch.rand(
         shape, generator=generator, device=x.device), x.shape) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, p: float, train: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth: a residual branch's output x (N, ...) is kept
+    whole for a row with probability 1 - p, drawn as ``rand(N) < 1 - p``,
+    and scaled by 1/(1 - p); a rate of 0 draws nothing."""
+    if not train or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode drop path needs a generator")
+    keep_prob = 1.0 - p
+    keep = local_noise(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device), x.shape[:1]) < keep_prob
+    keep = keep.view((-1,) + (1,) * (x.dim() - 1))
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -10,7 +10,8 @@ checks: the CPU tests (``tests/test_torch_crop_resize.py``), the card tests
   ODD_CROPS    crops on a 40 x 64 canvas with their flips, for
                ``odd_inputs``
   STEP_CASES   the visual modalities each train cell of the benchmark
-               preprocesses a step, at full size, for ``step_inputs``
+               preprocesses a step, at full size and with the cell's crop
+               mode, for ``step_inputs``
 """
 
 from __future__ import annotations
@@ -52,14 +53,18 @@ ODD_CROPS = [[0, 0, 64, 40], [3.3, 1.7, 20.5, 30.2],
              [12.75, 8.125, 3.5, 4.25], [0, 12, 64, 16], [70, 45, 10, 10]]
 ODD_FLIPS = [True, False, True, False, True, True, False, True, True]
 
-# (label, modality, clips, canvas frames a clip, canvas H, W): the visual
-# modalities the benchmark's train cells preprocess a step, at 224 px
+# (label, modality, clips, canvas frames a clip, canvas H, W, the loader's
+# crop version): the visual modalities the benchmark's train cells
+# preprocess a step, at 224 px; "v2" is the scale jitter (short side
+# 256-320), "random_sized" the crops of area 0.08-1 and aspect 3/4-4/3,
+# magnified up to about 2.7x
 STEP_CASES = [
-    ("flagship_rgb", "rgb", 18, 40, 256, 464),
-    ("rgbflow_rgb", "rgb", 9, 40, 256, 464),
-    ("rgbflow_flow", "flow", 9, 200, 256, 464),
-    ("rgbflow_rgbdiff", "rgbdiff", 9, 240, 256, 464),
-    ("slowfast_rgb", "rgb", 64, 32, 256, 340),
+    ("flagship_rgb", "rgb", 18, 40, 256, 464, "v2"),
+    ("rgbflow_rgb", "rgb", 9, 40, 256, 464, "v2"),
+    ("rgbflow_flow", "flow", 9, 200, 256, 464, "v2"),
+    ("rgbflow_rgbdiff", "rgbdiff", 9, 240, 256, 464, "v2"),
+    ("slowfast_rgb", "rgb", 64, 32, 256, 340, "v2"),
+    ("mvit_rgb", "rgb", 32, 16, 256, 340, "random_sized"),
 ]
 STEP_OUT = 224
 
@@ -93,22 +98,28 @@ def odd_inputs(modality: str, ncrops: int, out_size: int, normalize: bool,
         (0.2, 0.25, 0.3)[:c] if normalize else None, ncrops)
 
 
+def step_crops(case, seed: int) -> tuple:
+    """(crop_xywh (N, 4), flip (N,)) of a STEP_CASES row: pictures 256
+    high and 256 to W wide, as the benchmark's canvas pool makes them, and
+    train crops and flips as the loader draws them
+    (``data/aug_params.sample_crop_flip`` in the row's crop version)."""
+    _, _, n, _, h, w, version = case
+    rs = np.random.RandomState(seed)
+    hw = np.stack([np.full(n, h), rs.randint(256, w + 1, n)], 1)
+    return sample_crop_flip(hw, input_size=STEP_OUT, train=True,
+                            version=version, scale_range=(256, 320), rng=rs)
+
+
 def step_inputs(case, device, seed: int) -> dict:
-    """One step's canvases of a STEP_CASES row, random uint8 on ``device``
-    (pictures 256 high and 256 to W wide, as the benchmark's canvas pool
-    makes them), train crops and flips as the loader draws them
-    (``data/aug_params.sample_crop_flip``, short side 256-320), and the
-    modality's mean and std over C."""
-    _, modality, n, t, h, w = case
+    """One step's canvases of a STEP_CASES row, random uint8 on ``device``,
+    its ``step_crops``, and the modality's mean and std over C."""
+    _, modality, n, t, h, w, _ = case
     c = MODALITIES[modality][0]
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     frames = torch.randint(0, 256, (n, t, h, w, c), generator=gen,
                            dtype=torch.uint8, device=device)
-    rs = np.random.RandomState(seed)
-    hw = np.stack([np.full(n, h), rs.randint(256, w + 1, n)], 1)
-    crop, flip = sample_crop_flip(hw, input_size=STEP_OUT, train=True,
-                                  scale_range=(256, 320), rng=rs)
+    crop, flip = step_crops(case, seed)
     mean, std = modality_mean(modality), modality_std(modality)
     reps = c // len(mean)
     return _kernel_args(modality, frames, torch.from_numpy(crop).to(device),

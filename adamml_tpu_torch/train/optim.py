@@ -3,10 +3,14 @@
 The main net trains with SGD: L2 weight decay added to the gradient,
 heavy-ball momentum with dampening 0, optional nesterov. The policy net
 trains with Adam (L2 in the gradient, not AdamW), b1 0.9, b2 0.999, eps
-1e-8, bias-corrected. Both keep torch's classes, state dicts and
-``foreach`` switch (``fused_update=False``, ``--no_fused_update``, gives
-``foreach=False``: one update per tensor, the same math and the same state
-dict); the JAX package's FusedSGD ravels the parameters into one vector
+1e-8, bias-corrected. ``--optimizer adamw`` trains train_unimodal's
+backbone with AdamW instead (the port's own flag; PySlowFast's MViTv2
+recipe): the same Adam with decoupled decay, p <- p (1 - lr wd) before the
+update, and no decay on 1-D parameters (biases, norms; PySlowFast's
+``ZERO_WD_1D_PARAM``) in a second param group. All keep torch's classes,
+state dicts and ``foreach`` switch (``fused_update=False``,
+``--no_fused_update``, gives ``foreach=False``: one update per tensor, the
+same math and the same state dict); the JAX package's FusedSGD ravels the parameters into one vector
 only to cut TPU dispatches, which ``foreach`` does here.
 
 Their ``step`` is the port's own, written with ``_foreach`` ops so that it
@@ -112,7 +116,9 @@ class Adam(torch.optim.Adam):
     """torch's Adam with L2 in the gradient (same defaults and state dict:
     ``step``, ``exp_avg``, ``exp_avg_sq``; ``capturable=True``, so a loaded
     ``step`` lands on the parameters' device), its step written on a
-    device learning rate and a device step count."""
+    device learning rate and a device step count; with
+    ``decoupled_weight_decay`` (``AdamW``) the decay scales the parameters
+    before the update instead."""
 
     def __init__(self, params, **kwargs):
         super().__init__(params, capturable=True, **kwargs)
@@ -147,8 +153,11 @@ class Adam(torch.optim.Adam):
             torch._foreach_neg_(bc2)
             torch._foreach_add_(bc2, 1.0)
             torch._foreach_sqrt_(bc2)
+            decoupled = group.get("decoupled_weight_decay", False)
+            if decoupled and wd != 0:
+                torch._foreach_mul_(params, 1.0 - lr * wd)
             if group["foreach"]:
-                if wd != 0:
+                if wd != 0 and not decoupled:
                     grads = torch._foreach_add(grads, params, alpha=wd)
                 torch._foreach_lerp_(m, grads, 1.0 - b1)
                 torch._foreach_mul_(v, b2)
@@ -162,7 +171,7 @@ class Adam(torch.optim.Adam):
                 torch._foreach_sub_(params, upd)
                 continue
             for p, g, mi, vi, c1, c2 in zip(params, grads, m, v, bc1, bc2):
-                if wd != 0:
+                if wd != 0 and not decoupled:
                     g = g.add(p, alpha=wd)
                 mi.lerp_(g, 1.0 - b1)
                 vi.mul_(b2).addcmul_(g, g, value=1.0 - b2)
@@ -171,11 +180,29 @@ class Adam(torch.optim.Adam):
         return None
 
 
+class AdamW(Adam):
+    """``Adam`` with decoupled weight decay (torch's AdamW update)."""
+
+    def __init__(self, params, **kwargs):
+        super().__init__(params, decoupled_weight_decay=True, **kwargs)
+
+
 def build_optimizer(kind: str, cfg_optim,
                     params: Iterable[torch.nn.Parameter]
                     ) -> torch.optim.Optimizer:
-    """'main': SGD (reference train_adamml.py:254-257); 'policy': Adam
-    (reference train_adamml.py:251). The learning rate is set per step."""
+    """'main': SGD (reference train_adamml.py:254-257), or AdamW under
+    ``--optimizer adamw`` (1-D parameters in a group of their own without
+    decay); 'policy': Adam (reference train_adamml.py:251). The learning
+    rate is set per step."""
+    if kind == "main" and cfg_optim.optimizer == "adamw":
+        params = list(params)
+        groups = [{"params": [p for p in params if p.dim() > 1]},
+                  {"params": [p for p in params if p.dim() <= 1],
+                   "weight_decay": 0.0}]
+        return AdamW([g for g in groups if g["params"]], lr=cfg_optim.lr,
+                     betas=ADAM_BETAS, eps=ADAM_EPS,
+                     weight_decay=cfg_optim.weight_decay,
+                     foreach=cfg_optim.fused_update)
     if kind == "main":
         return SGD(params, lr=cfg_optim.lr, momentum=cfg_optim.momentum,
                    nesterov=cfg_optim.nesterov,

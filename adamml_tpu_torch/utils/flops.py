@@ -9,7 +9,9 @@ model's forward (``adamml_tpu/utils/flops.py``).
 2. ``count_model_flops``: the FLOPs of one forward, counted by
    ``torch.utils.flop_counter.FlopCounterMode`` (2 per multiply-add of
    the matmuls and convolutions, 2D and SlowFast's 3D alike: its formula
-   takes every spatial and temporal axis of the output and the kernel).
+   takes every spatial and temporal axis of the output and the kernel;
+   MViT's linear layers, both attention products and its relative-position
+   einsums are matmuls to it).
    The JAX package takes XLA's cost analysis, which also counts
    elementwise work, so its count is higher.
 """

@@ -25,6 +25,11 @@
   stretch, highest sequence number first, since nothing outside the
   module consumes what it makes inside. In a trace the backward's range
   lies on the thread that runs it: the autograd engine's, for a card.
+  Tensors the call takes after x (MViT's ``model.attn``: q, then k and v)
+  carry no marker: the span closes when x's gradient leaves, after the
+  nodes that also give theirs. The models' spans: SlowFast's
+  ``model.slow``, ``model.fast``, ``model.fuse``; MViT's ``model.pool``,
+  ``model.attn``, ``model.mlp``.
 - ``StepProfiler``: with --profile_dir set, the curriculum hands the engine
   one for the first epoch of each training pass; it traces steps [start,
   stop) of it (loader indices; with K steps a dispatch, whole dispatches

@@ -1,0 +1,14 @@
+"""Device ms a step of the kernels, copies and fills launched inside the
+program's ``model.attn`` spans (MViT: each block's logits with the
+decomposed relative positions, the softmax, the product with v and
+residual pooling), forward and backward, over the traced profile's whole
+steps (``benchmark/model_spans.py``). Nothing to read where the program
+has no such span."""
+
+from benchmark import model_spans
+
+
+def read(ctx):
+    if ctx.kind != "train":
+        return None
+    return model_spans.device_ms_per_step(ctx, "model.attn")

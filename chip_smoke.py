@@ -32,8 +32,9 @@ Phases, each printing one JSON line a case:
   tools       the stage-boundary prototype kernel at bench_tpool's shapes;
   crop_resize the card preprocessing's kernel (ops/kernels/crop_resize.py)
               at each train cell's visual modalities of one step (flagship
-              rgb, rgbflow rgb, flow and rgbdiff, slowfast rgb;
-              tools/crop_cases.py), with the loader's train crops, beside
+              rgb, rgbflow rgb, flow and rgbdiff, slowfast rgb, mvit rgb;
+              tools/crop_cases.py), with the loader's train crops in each
+              cell's mode (mvit's random-sized, magnifying), beside
               the plain path; sums by cell; then its launches on
               make_batch_preprocessor of a rgbflow and a flagship batch;
   kernels     one object per kernel, as in PERF.md's table, with its
@@ -783,7 +784,7 @@ def crop_resize_phase(dev) -> dict:
         del a
         torch.cuda.empty_cache()
     cells = {}
-    for cell in ("flagship", "rgbflow", "slowfast"):
+    for cell in ("flagship", "rgbflow", "slowfast", "mvit"):
         mine = [r for r in rows if r["case"].startswith(cell)]
         cells[cell] = dict(_sum(mine), max_abs_err=max(
             r["max_abs_err"] for r in mine))

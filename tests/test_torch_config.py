@@ -58,22 +58,38 @@ def _actions(parser):
         type(a).__name__) for a in parser._actions}
 
 
-# the port's own choices beyond the JAX package's: its 3D model and the
-# dataset that model trains on
-PORT_CHOICES = {("--backbone_net",): ["slowfast"],
+# the port's own choices beyond the JAX package's: its 3D models and the
+# dataset they train on
+PORT_CHOICES = {("--backbone_net",): ["slowfast", "mvit"],
                 ("--dataset",): ["kinetics400"]}
+# the port's own flags, with the config fields they set: train_unimodal's
+# optimizer (SGD by default, as the JAX package trains)
+PORT_FLAGS = {("--optimizer",): ("optim", "optimizer")}
+
+
+def _jax_fields(cfg) -> dict:
+    """The config as a dict without the port's own fields."""
+    d = dataclasses.asdict(cfg)
+    for part, field in PORT_FLAGS.values():
+        d[part].pop(field)
+    return d
 
 
 def test_arg_parser_has_the_jax_flag_set():
     """Every flag: its spellings, destination, default, nargs, choices,
     const, type and action kind; the port's choices are the JAX package's
-    and ``PORT_CHOICES``."""
+    and ``PORT_CHOICES``, its flags the JAX package's and ``PORT_FLAGS``
+    (``--optimizer`` defaulting to sgd)."""
     want = _actions(jconfig.arg_parser())
     for flag, extra in PORT_CHOICES.items():
         dest, default, nargs, choices, const, typ, kind = want[flag]
         want[flag] = (dest, default, nargs, list(choices) + extra, const,
                       typ, kind)
-    assert _actions(tconfig.arg_parser()) == want
+    got = _actions(tconfig.arg_parser())
+    assert got.pop(("--optimizer",)) == ("optimizer", "sgd", None,
+                                         ["sgd", "adamw"], None, None,
+                                         "_StoreAction")
+    assert got == want
 
 
 @pytest.mark.parametrize("argv", [VERIFY_UNIMODAL, VERIFY_ADAMML] + BAD_ARGV,
@@ -83,7 +99,8 @@ def test_config_from_args_matches(argv):
     """The same dataclasses, field for field, and the same arch name."""
     tcfg = tconfig.config_from_args(tconfig.arg_parser().parse_args(argv))
     jcfg = jconfig.config_from_args(jconfig.arg_parser().parse_args(argv))
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert _jax_fields(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.optim.optimizer == "sgd"
     for test_mode in (False, True):
         assert (tconfig.arch_name(tcfg, test_mode)
                 == jconfig.arch_name(jcfg, test_mode))
@@ -91,7 +108,7 @@ def test_config_from_args_matches(argv):
 
 def test_dataclass_fields_and_modality_constants_match():
     tcfg, jcfg = tconfig.ExperimentConfig(), jconfig.ExperimentConfig()
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert _jax_fields(tcfg) == dataclasses.asdict(jcfg)
     for m in tconfig.MODALITIES:
         assert tconfig.modality_mean(m) == jconfig.modality_mean(m)
         assert tconfig.modality_std(m) == jconfig.modality_std(m)

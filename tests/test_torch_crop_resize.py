@@ -15,6 +15,7 @@ refusals, and a CPU tensor taking the plain path with no launch. The
 kernel itself runs in ``tests/test_torch_gpu.py`` (``-k crop_resize``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -149,6 +150,35 @@ def test_work_counts_the_support_and_the_output():
     t = crk.axis_taps(64, 16, half[:, 0], half[:, 2])
     side = int(t["lo"][0, -1] + t["count"][0, -1] - t["lo"][0, 0])
     assert got == side * side * 3 + 16 * 16 * 3 * 4
+
+
+@pytest.mark.parametrize("case", cc.STEP_CASES,
+                         ids=[c[0] for c in cc.STEP_CASES])
+def test_step_crops_follow_the_cells_crop_mode(case):
+    """The card checks' crops of each train cell's step are the loader's
+    in the cell's mode: square scale-jitter crops (short side 256-320, so
+    minified to 224) for the ResNet and SlowFast cells; for MViT's,
+    random-sized crops (area 0.08-1 of the picture, aspect 3/4-4/3, 10
+    tries before the square fallback), some of them magnified to 224,
+    all inside the canvas."""
+    _, _, n, _, h, w, version = case
+    crop, flip = cc.step_crops(case, seed=3)
+    assert crop.shape == (n, 4) and flip.shape == (n,)
+    x, y, cw, ch = (crop[:, i] for i in range(4))
+    assert (x >= 0).all() and (y >= 0).all()
+    assert (x + cw <= w + 1e-3).all() and (y + ch <= h + 1e-3).all()
+    if version == "v2":
+        assert (cw == ch).all()
+        assert (cw >= 224 * 256 / 320 - 1e-3).all()
+        assert (cw <= 224 + 1e-3).all()
+        return
+    assert version == "random_sized"
+    # pictures are h x 256 to h x w; rounding each side moves the area
+    # and aspect by under 5% at the smallest crops (about 63 x 84)
+    assert (cw != ch).any() and (cw * ch <= h * w).all()
+    assert (cw * ch >= 0.08 * 0.95 * h * 256).all()
+    assert (ch / cw >= 0.75 * 0.95).all() and (ch / cw <= 4 / 3 * 1.05).all()
+    assert (np.minimum(cw, ch) < 224).any()
 
 
 CROPS = torch.tensor(cc.ODD_CROPS)

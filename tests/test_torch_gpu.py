@@ -16,7 +16,8 @@ card; the device preprocessing; a tiny train_adamml run on the card
 against the CPU, every epoch's epilogue launches counted, and the K = 2
 curriculum's traces each holding one replay; the multi-step dispatch's
 replayed CUDA graph against the same steps run as single steps; and
-SlowFast's 3D convolutions in bf16 channels-last against float32. The
+SlowFast's 3D convolutions in bf16 channels-last against float32; a small
+MViT's train step on the card against the CPU. The
 loader's page-locked batch buffers from torch's caching host allocator: a
 buffer reused only after the copy that read it (the stream held before
 each copy, on the current stream, a side stream and a second card), a
@@ -668,6 +669,60 @@ def test_conv3d_bf16_channels_last_matches_float32(case):
     assert bool(((got.float() - want).abs() <= 2 ** -7 * terms).all())
 
 
+def test_mvit_step_on_the_card_matches_the_cpu():
+    """A small MViT (width 8, 4 blocks with transitions at 1 and 3, 4
+    frames of 32 px, 2 clips) in float32 with TF32 off: one AdamW train
+    step on the card (the pooling's channels-first depthwise convolutions,
+    the attention's baddbmm and bmm) against the same step on the CPU,
+    logits within 1e-5 of the largest and every leaf's gradient within
+    1e-4 of the larger of its largest entry and the median leaf's (the
+    sums' order differs, float32 reads about 1e-6). Drop path and the
+    head's dropout are off: a CPU and a CUDA generator of one seed draw
+    different masks (the CPU tests hold the masks to the reference's)."""
+    _need_card()
+    from adamml_tpu_torch.models.model_builder import init_model
+    from adamml_tpu_torch.models.mvit import MViT
+    from adamml_tpu_torch.train.optim import AdamW
+    from adamml_tpu_torch.train.steps import (make_unimodal_train_step,
+                                              step_generators)
+
+    small = dict(num_classes=5, embed_dim=8, depth=4, transitions=(1, 3),
+                 kv_stride=4, frames=4, input_size=32, drop_path=0.0,
+                 dropout=0.0)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 4, 32, 32, 3), generator=g)
+    target = torch.randint(0, 5, (2,), generator=g)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            model = init_model(MViT(**small), seed=3).to(dev)
+            with torch.no_grad():
+                logits = model(x.to(dev), train=True,
+                               generator=step_generators(
+                                   torch.device(dev), 11, 0)[1])
+            opt = AdamW(model.parameters(), lr=1e-3)
+            make_unimodal_train_step(model, clip_gradient=1.0)(
+                TrainState(opt, None), x.to(dev), target.to(dev), 1e-3, 11)
+            out[dev] = (logits.cpu(), {
+                n: opt.state[p]["exp_avg"].cpu() / 0.1
+                for n, p in model.named_parameters()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert float((lg - lc).abs().max() / lc.abs().max()) < 1e-5
+    scale = {n: float(t.abs().max()) for n, t in gc.items()}
+    med = float(np.median(list(scale.values())))
+    gaps = {n: float((gg[n] - gc[n]).abs().max()) / max(scale[n], med)
+            for n in gc}
+    assert max(gaps.values()) < 1e-4, sorted(gaps.items(),
+                                              key=lambda t: -t[1])[:3]
+
+
 def test_cuda_kernel_refuses_grad_and_bad_args():
     """Gradients are taken (test_cuda_autograd_runs_both_kernels); what the
     kernels cannot take raises."""
@@ -1251,7 +1306,8 @@ def _crop_both(a: dict, dtype) -> tuple:
                          ids=[c[0] for c in cc.STEP_CASES])
 def test_cuda_crop_resize_matches_plain(case, dtype, normalize, monkeypatch):
     """The kernel at each train cell's visual modalities of one step (the
-    benchmark's train crops on full-size canvases) against the plain path,
+    benchmark's train crops, in the cell's crop mode, on full-size
+    canvases; MViT's random-sized crops magnify) against the plain path,
     float32 with TF32 off."""
     _need_card()
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)

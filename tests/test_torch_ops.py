@@ -36,7 +36,11 @@ from torch_parity import one_torch_thread, t  # noqa: F401
 @pytest.mark.parametrize("tiny", [False, True])
 def test_flagship_cfg_matches(tiny):
     ours, theirs = tcfg.flagship_cfg(tiny), graft._flagship_cfg(tiny)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    got = dataclasses.asdict(ours)
+    # the port's own field: train_unimodal's optimizer, SGD as the JAX
+    # package trains
+    assert got["optim"].pop("optimizer") == "sgd"
+    assert got == dataclasses.asdict(theirs)
     for test_mode in (False, True):
         assert (tcfg.arch_name(ours, test_mode)
                 == jcfg.arch_name(theirs, test_mode))
